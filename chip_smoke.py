@@ -4,11 +4,19 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
-with nvcc (sm_90a), then runs three phases, each printing one JSON line:
+with nvcc (sm_90a, one process per source), then runs five phases, each
+printing one JSON line:
 
   (a) kernel_vs_plain  K1 against its plain torch version on the card, at the
                        shapes the engine gives it and at small edge shapes;
                        both timed with CUDA events after a warm-up.
+  (a') pairhmm_vs_plain
+                       K2 and K3 against their plain torch versions on the
+                       card: 4096 x 160 x 100 and 16384 x 256 x 150 items
+                       (allele x read), the ragged _synth set, and the edge
+                       sets (empty read, N / lowercase, read longer than its
+                       allele, 250-base low-quality reads, the long deletion
+                       chain, alleles over 1024 bases); timed with CUDA events.
   (b) engine           the tumor-normal engine (resolution 0.01) on 32768
                        synthetic loci at depth 64, every output copied to the
                        host; K1 must launch twice per call; the first 1024 loci
@@ -18,10 +26,19 @@ with nvcc (sm_90a), then runs three phases, each printing one JSON line:
                        ``call variants tumor-normal --device cuda`` and
                        ``filter-calls control-fdr``; the first 2,000 loci are
                        re-called with ``--device cpu`` and the VCFs compared.
+  (d) preprocess       a 2 Mb tumor/normal world (30x, 2x100 bp, 1,500 planted
+                       indels and 500 decoys) through ``estimate
+                       alignment-properties``, ``preprocess variants --device
+                       cuda`` (both samples), a re-run of the first 200
+                       normal candidates with the other gap model (so that K2
+                       and K3 both launch), a ``--device cpu`` re-preprocess of
+                       the first 192 loci of each sample (compared), ``call
+                       variants tumor-normal --device cuda`` and
+                       ``filter-calls control-fdr``.
 
-The line before the last lists the kernels ({"kernels": [...]}) with the
-launches counted in phase (c), the main path; the last line is
-{"ok": true, "device": {...}}.  Any failure exits non-zero, and without a
+The line before the last lists the kernels ({"kernels": [...]}): K1 with the
+launches counted in phase (c), K2 and K3 with those counted in phase (d)'s
+preprocess steps; the last line is {"ok": true, "device": {...}}.  Any failure exits non-zero, and without a
 CUDA device the script exits non-zero before printing anything.  Scratch
 files go to build/chip_smoke/ inside the checkout.
 """
@@ -40,6 +57,16 @@ ROOT = Path(__file__).resolve().parent
 K1_SOURCE = "varlociraptor_tpu_torch/csrc/ll_classes.cu"
 K1_REPLACES = "varlociraptor_tpu/ops/pallas_kernels.py:42"
 K1_TOL = 5e-5  # x max(1, |x|); f32 logs summed in another order
+K23_SOURCE = "varlociraptor_tpu_torch/csrc/pairhmm_column.cu"
+K2_REPLACES = "varlociraptor_tpu/ops/pallas_pairhmm.py:60"
+K3_REPLACES = "varlociraptor_tpu/ops/pallas_pairhmm.py:290"
+# x max(1, |x|): f32 column sums in another order, the D scan in another
+# association; -1e30 (impossible) must match exactly
+K23_TOL = 1e-4
+# log gap params (t_mi, t_md, t_ii, t_dd): the default zero-extension model
+# and ONT-like finite extensions (tests/test_pallas_pairhmm.py)
+GAP_ZERO = (-12.785891140783116, -12.186270018233994, -1e30, -1e30)
+GAP_ONT = (-5.278515, -5.472671, -1.049822, -0.867501)
 
 
 class PhaseError(RuntimeError):
@@ -330,6 +357,247 @@ def phase_cli(work, n_loci=100_000, n_cpu=2000, device="cuda"):
     }, launches
 
 
+def pairhmm_sets():
+    """(name, alleles, reads, quals) of phase (a')."""
+    from varlociraptor_tpu_torch.bench_utils import (
+        pairhmm_edge_items,
+        pairhmm_items,
+        pairhmm_shape_items,
+    )
+
+    sets = [("b4096_x160_y100", *pairhmm_shape_items(4096, 160, 100, seed=1)),
+            ("b16384_x256_y150", *pairhmm_shape_items(16384, 256, 150, seed=2)),
+            ("synth_ragged", *pairhmm_items(21, 3))]
+    sets += [(name, *items) for name, items in pairhmm_edge_items().items()]
+    return sets
+
+
+def phase_pairhmm_vs_plain(timer=cuda_ms):
+    import numpy as np
+    import torch
+
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    out = {"phase": "pairhmm_vs_plain", "tol_rel": K23_TOL, "cases": []}
+    worst = {"exact": 0.0, "general": 0.0}
+    bench = {}
+    for name, alleles, reads, quals in pairhmm_sets():
+        for kind, gap in (("exact", GAP_ZERO), ("general", GAP_ONT)):
+            args, n, Xp, Yp = phc.pack_exact_batch(alleles, reads, quals, gap)
+            if kind == "general":
+                args = args[:5] + (phc.general_coef(gap),)
+            dev = phc.to_device(args, "cuda")
+            fn = getattr(phc, f"{kind}_forward")
+            ref_fn = getattr(phc, f"{kind}_forward_reference")
+            g = fn(*dev).cpu().numpy()
+            torch.cuda.synchronize()
+            r = ref_fn(*dev).cpu().numpy()
+            if not np.array_equal(np.isfinite(g), np.isfinite(r)):
+                raise PhaseError(f"{kind} {name}: finiteness differs from the plain version")
+            if not np.array_equal(g <= -1e30, r <= -1e30):
+                raise PhaseError(f"{kind} {name}: -1e30 results differ from the plain version")
+            live = r > -1e30
+            err = np.abs(g[live] - r[live]) if live.any() else np.zeros(1)
+            rel = float(np.max(err / np.maximum(1.0, np.abs(r[live])))) if live.any() else 0.0
+            if not rel <= K23_TOL:
+                raise PhaseError(f"{kind} {name}: rel err {rel} > {K23_TOL}")
+            worst[kind] = max(worst[kind], float(err.max()))
+            case = {"kernel": kind, "case": name, "B": n, "Xp": Xp, "Yp": Yp,
+                    "impossible": int((~live).sum()), "max_abs_err": float(err.max()),
+                    "max_rel_err": rel}
+            if n >= 4096:
+                case["ms"] = timer(lambda: fn(*dev), 10)
+                case["plain_ms"] = timer(lambda: ref_fn(*dev), 2)
+                case["gcells_per_s"] = float((np.asarray(args[3], np.float64)
+                                              * args[4]).sum() / case["ms"] / 1e6)
+                bench[kind] = case
+            out["cases"].append(case)
+    out["max_abs_err"] = worst
+    return out, bench
+
+
+@contextlib.contextmanager
+def timed_pairhmm():
+    """CUDA-event device time and work items of every K2 / K3 launch inside
+    the block (events around the kernel launch helper; counts untouched)."""
+    import torch
+
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    launch = phc._launch
+    events = {"vlt_pairhmm_exact": [], "vlt_pairhmm_general": []}
+    items = dict.fromkeys(events, 0)
+
+    def timed(fn_name, *args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = launch(fn_name, *args)
+        b.record()
+        events[fn_name].append((a, b))
+        items[fn_name] += args[0].shape[0]
+        return out
+
+    phc._launch = timed
+    stats = {}
+    try:
+        yield stats
+    finally:
+        phc._launch = launch
+        torch.cuda.synchronize()
+        for k, v in events.items():
+            stats[k] = {"ms": sum(a.elapsed_time(b) for a, b in v), "forwards": items[k]}
+
+
+def head_of_vcf(src, dst, n):
+    """The header and the first n records of a VCF."""
+    kept, lines = 0, []
+    for line in Path(src).read_text().splitlines(keepends=True):
+        if not line.startswith("#"):
+            if kept == n:
+                break
+            kept += 1
+        lines.append(line)
+    Path(dst).write_text("".join(lines))
+
+
+def cli_quiet(argv, stdout=None):
+    """cli.run with the progress log and (unless captured) stdout muted."""
+    import io
+
+    from varlociraptor_tpu_torch import cli
+
+    with contextlib.redirect_stderr(io.StringIO()), \
+            contextlib.redirect_stdout(stdout or io.StringIO()):
+        return cli.run(argv)
+
+
+def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
+                     n_decoy=500, n_rerun=200, n_cpu=192, device="cuda"):
+    import io
+    import json as _json
+
+    import numpy as np
+
+    from varlociraptor_tpu.estimation.alignment_properties import (
+        AlignmentProperties,
+        GapParams,
+    )
+    from varlociraptor_tpu.io import native
+    from varlociraptor_tpu_torch.bench_utils import synth_preprocess_world
+    from varlociraptor_tpu_torch.calling.preprocess import PreprocessOptions, preprocess
+    from varlociraptor_tpu_torch.compare import compare_observation_files, vcf_record_keys
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    res = {"phase": "preprocess", "native_host_library": native.available()}
+    secs = res["seconds"] = {}
+    t0 = time.perf_counter()
+    w = synth_preprocess_world(work / "world", seed=0, genome_len=genome_len,
+                               n_germline=n_germline, n_somatic=n_somatic,
+                               n_decoy=n_decoy)
+    secs["world"] = time.perf_counter() - t0
+    n = w["n_candidates"]
+    res.update(genome_len=genome_len, candidates=n, reads=w["reads"])
+
+    # 1. estimate on the normal BAM, then preprocess both samples on the card
+    props_path = work / "props.json"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    rc = cli_quiet(["estimate", "alignment-properties", w["fasta"], "--bam", w["normal"]],
+                   stdout=buf)
+    secs["estimate"] = time.perf_counter() - t0
+    props_path.write_text(buf.getvalue())
+    props = AlignmentProperties.from_json(buf.getvalue())
+    gp = props.gap_params
+    finite = [np.isfinite(gp.prob_insertion_extend_artifact),
+              np.isfinite(gp.prob_deletion_extend_artifact)]
+    res["gap_model"] = {"estimated": _json.loads(props.to_json())["gap_params"],
+                        "kernel": "K2" if not any(finite) else "K3"}
+    phc.exact_forward.launches = phc.general_forward.launches = 0  # main path
+    obs, forwards = {}, {}
+    with timed_pairhmm() as hmm_stats:
+        for sample in ("tumor", "normal"):
+            obs[sample] = str(work / f"{sample}.obs")
+            t0 = time.perf_counter()
+            rc |= cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w[sample],
+                             "--candidates", w["candidates"], "--output", obs[sample],
+                             "--sample-name", sample, "--alignment-properties",
+                             str(props_path), "--device", device])
+            secs[f"preprocess_{sample}"] = time.perf_counter() - t0
+        # 2. the other gap model on the first n_rerun normal candidates
+        other = AlignmentProperties.from_json(props.to_json())
+        other.gap_params = (GapParams() if any(finite) else GapParams(*GAP_ONT))
+        other_path = work / "props_other.json"
+        other_path.write_text(other.to_json())
+        head = work / f"candidates_{n_rerun}.vcf"
+        head_of_vcf(w["candidates"], head, n_rerun)
+        t0 = time.perf_counter()
+        rc |= cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w["normal"],
+                         "--candidates", str(head), "--output", str(work / "normal_other.obs"),
+                         "--alignment-properties", str(other_path), "--device", device])
+        secs["preprocess_normal_other_model"] = time.perf_counter() - t0
+    launches = {"exact": phc.exact_forward.launches, "general": phc.general_forward.launches}
+    if rc != 0:
+        raise PhaseError(f"preprocess: the CLI returned {rc}")
+    if min(launches.values()) == 0:
+        raise PhaseError(f"preprocess: a pair-HMM kernel never launched: {launches}")
+    res["pairhmm_launches"] = launches
+    res["pairhmm_device_ms"] = {"K2": hmm_stats["vlt_pairhmm_exact"]["ms"],
+                                "K3": hmm_stats["vlt_pairhmm_general"]["ms"]}
+    res["pairhmm_forwards"] = {"K2": hmm_stats["vlt_pairhmm_exact"]["forwards"],
+                               "K3": hmm_stats["vlt_pairhmm_general"]["forwards"]}
+    res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
+    pre_s = secs["preprocess_tumor"] + secs["preprocess_normal"] + secs["preprocess_normal_other_model"]
+    res["pairhmm_device_share_of_preprocess"] = sum(res["pairhmm_device_ms"].values()) / 1e3 / pre_s
+
+    # 3. the first n_cpu loci again on the CPU (plain K2 / K3), same chunk
+    head_cpu = work / f"candidates_{n_cpu}.vcf"
+    head_of_vcf(w["candidates"], head_cpu, n_cpu)
+    cmp = {}
+    for sample in ("tumor", "normal"):
+        cpu_obs = work / f"{sample}.cpu.obs"
+        t0 = time.perf_counter()
+        preprocess(str(head_cpu), w[sample], w["fasta"], str(cpu_obs), sample_name=sample,
+                   alignment_properties=AlignmentProperties.from_json(props_path.read_text()),
+                   options=PreprocessOptions(device_chunk=64, log_mode="silent"),
+                   device="cpu")
+        secs[f"cpu_preprocess_{sample}_{n_cpu}"] = time.perf_counter() - t0
+        problems, info = compare_observation_files(cpu_obs, obs[sample], n=n_cpu)
+        if problems:
+            raise PhaseError(f"preprocess cuda vs cpu ({sample}): " + "; ".join(problems[:3]))
+        cmp[sample] = info
+    res["cuda_vs_cpu"] = cmp
+
+    # 4. call on the card and control the FDR
+    calls, kept = work / "pp_calls.vcf", work / "pp_somatic.fdr.vcf"
+    k1.ll_classes.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_quiet(["call", "variants", "tumor-normal", "--tumor", obs["tumor"],
+                    "--normal", obs["normal"], "--purity", "0.75", "--device", device,
+                    "--output", str(calls)])
+    secs["call"] = time.perf_counter() - t0
+    res["k1_launches"] = k1.ll_classes.launches
+    t0 = time.perf_counter()
+    rc |= cli_quiet(["filter-calls", "control-fdr", str(calls), "--events", "somatic_tumor",
+                     "--fdr", "0.05", "--output", str(kept)])
+    secs["fdr"] = time.perf_counter() - t0
+    if rc != 0:
+        raise PhaseError(f"preprocess phase: call / filter returned {rc}")
+    n_called = len(vcf_record_keys(calls.read_text()))
+    kept_pos = np.array([int(k[1]) - 1 for k in vcf_record_keys(kept.read_text())], np.int64)
+    truth = w["truth"]
+    res.update(
+        records_called=n_called, somatic_kept=int(len(kept_pos)),
+        planted_somatic_recall=float(np.isin(truth["somatic"], kept_pos).mean()),
+        germline_kept=int(np.isin(truth["germline"], kept_pos).sum()),
+        decoys_kept=int(np.isin(truth["decoy"], kept_pos).sum()),
+    )
+    if n_called != n or len(kept_pos) == 0 or res["k1_launches"] == 0:
+        raise PhaseError(f"preprocess phase: called {n_called} of {n}, kept "
+                         f"{len(kept_pos)}, K1 launches {res['k1_launches']}")
+    return res, launches
+
+
 def main():
     sys.meta_path.insert(0, refuse_jax)
     import torch
@@ -366,9 +634,13 @@ def main():
     _, engine = tumor_normal_engine(resolution=0.01, purity=0.75, device="cuda")
     a, bench = phase_kernel_vs_plain(engine)
     emit(a)
+    a2, hmm_bench = phase_pairhmm_vs_plain()
+    emit(a2)
     emit(phase_engine(engine))
     c, launches = phase_cli(work)
     emit(c)
+    d, hmm_launches = phase_preprocess(work)
+    emit(d)
     repo_attempts = []
     for name, stack in refuse_jax.attempts:
         print(f"chip_smoke: refused an import of {name} from:\n{stack}", file=sys.stderr)
@@ -381,7 +653,12 @@ def main():
         "replaces": K1_REPLACES, "launches": launches,
         "max_abs_err": a["max_abs_err"], "ms": bench["ms"],
         "plain_ms": bench["plain_ms"],
-    }]})
+    }] + [{
+        "name": f"pairhmm_{kind}", "route": "cuda", "source": K23_SOURCE,
+        "replaces": replaces, "launches": hmm_launches[kind],
+        "max_abs_err": a2["max_abs_err"][kind], "ms": hmm_bench[kind]["ms"],
+        "plain_ms": hmm_bench[kind]["plain_ms"],
+    } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The port's hand-written CUDA kernel K1 (csrc/ll_classes.cu) on the card.
+"""The port's hand-written CUDA kernels on the card: K1 (csrc/ll_classes.cu),
+K2 and K3 (csrc/pairhmm_column.cu).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false.  On a machine with an NVIDIA card and nvcc:
@@ -6,22 +7,38 @@ false.  On a machine with an NVIDIA card and nvcc:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Tolerances: K1 against its plain torch version 5e-5 * max(1, |x|) with the
-same finiteness (float32 logs, read sums in another order); the engine on
-the card against the engine on the CPU at the engine tolerances of
-varlociraptor_tpu_torch/compare.py.
+same finiteness (float32 logs, read sums in another order); K2 and K3
+against theirs 1e-4 * max(1, |x|) (float32 column sums in another order, the
+D scan in another association), the same finiteness and -1e30 exactly where
+the plain version gives it; the engine on the card against the engine on
+the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
-from varlociraptor_tpu_torch.bench_utils import engine_inputs, tumor_normal_engine
+from varlociraptor_tpu_torch.bench_utils import (
+    engine_inputs,
+    pairhmm_edge_items,
+    pairhmm_items,
+    pairhmm_shape_items,
+    tumor_normal_engine,
+)
 from varlociraptor_tpu_torch.compare import compare_outputs
 from varlociraptor_tpu_torch.ops import ll_classes as k1
+from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
 pytestmark = pytest.mark.cuda
 
 TOL = 5e-5
+PAIRHMM_TOL = 1e-4
+# log gap params (t_mi, t_md, t_ii, t_dd): the default zero-extension model,
+# and ONT-like finite extensions (tests/test_pallas_pairhmm.py)
+GAP = np.array([math.log(2.8e-6), math.log(5.1e-6), -1e30, -1e30], np.float32)
+GAP_ONT = np.log(np.array([5.1e-3, 4.2e-3, 0.35, 0.42])).astype(np.float32)
 
 
 @pytest.fixture
@@ -90,3 +107,55 @@ def test_engine_on_the_card_matches_the_cpu(card):
     ref = cpu.run(*inputs)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
     assert not problems, problems[:5]
+
+
+def _pairhmm_sets():
+    sets = {"synth": pairhmm_items(21, 3), "synth11": pairhmm_items(21, 11),
+            "shape_160x100": pairhmm_shape_items(256, 160, 100, seed=1)}
+    sets.update(pairhmm_edge_items())
+    return sets
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["k2", "k3"])
+@pytest.mark.parametrize("name", sorted(_pairhmm_sets()))
+def test_pairhmm_kernel_matches_plain(card, general, name):
+    alleles, reads, quals = _pairhmm_sets()[name]
+    gap = GAP_ONT if general else GAP
+    args, n, _, _ = phc.pack_exact_batch(alleles, reads, quals, gap)
+    if general:
+        args = args[:5] + (phc.general_coef(gap),)
+    dev_args = phc.to_device(args, card)
+    fn = phc.general_forward if general else phc.exact_forward
+    ref_fn = phc.general_forward_reference if general else phc.exact_forward_reference
+    n0 = fn.launches
+    got = fn(*dev_args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    ref = ref_fn(*dev_args)
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    assert g.shape == (n,) and got.dtype == torch.float32
+    assert np.array_equal(np.isfinite(g), np.isfinite(r))
+    assert np.array_equal(g == -1e30, r == -1e30)
+    ok = r > -1e30
+    err = np.abs(g[ok] - r[ok]) / np.maximum(1.0, np.abs(r[ok]))
+    assert np.all(err <= PAIRHMM_TOL), (name, err.max())
+    # the whole item path: pack, kernel, empty-read mask
+    items = phc.forward_items(alleles, reads, quals, gap, card, general)
+    cpu = phc.forward_items(alleles, reads, quals, gap, "cpu", general)
+    assert np.array_equal(items == -1e30, cpu == -1e30)
+    ok = cpu > -1e30
+    assert np.all(np.abs(items[ok] - cpu[ok]) <= PAIRHMM_TOL * np.maximum(1, np.abs(cpu[ok])))
+
+
+def test_pairhmm_wrapper_checks_its_inputs(card):
+    alleles, reads, quals = pairhmm_items(8, 3)
+    args, *_ = phc.pack_exact_batch(alleles, reads, quals, GAP)
+    a, r, q, al, rl, coef = phc.to_device(args, card)
+    n0 = phc.exact_forward.launches
+    with pytest.raises(TypeError, match="int32"):
+        phc.exact_forward(a, r, q, al.long(), rl, coef)
+    with pytest.raises(ValueError, match="coef"):
+        phc.exact_forward(a, r, q, al, rl, torch.zeros(7, device=card))
+    with pytest.raises(ValueError):
+        phc.exact_forward(a, r, q, al.cpu(), rl, coef)
+    assert phc.exact_forward.launches == n0

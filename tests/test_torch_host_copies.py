@@ -2,9 +2,9 @@
 
 The JAX package's host modules import ``utils.logprob``, which imports
 ``jax.numpy`` at module top, so the port carries numpy copies of the ones the
-call stage needs.  Each copy must equal its original except for import lines
-(relative imports of modules the port does not copy become absolute imports
-of ``varlociraptor_tpu``), the top-level functions it leaves out on
+call stage and preprocess need.  Each copy must equal its original except
+for import lines (relative imports of modules the port does not copy become
+absolute imports of ``varlociraptor_tpu``), the top-level functions it leaves out on
 purpose (the ``jnp_*`` helpers, the sharded FDR), and paths into the Rust
 reference's sources, which the copies cite from the reference repository's
 root (``src/...``)."""
@@ -32,6 +32,13 @@ COPIES = {
     "calling/ref_obs.py": set(),
     "calling/columnar.py": set(),
     "filtration/fdr.py": {"control_fdr_sharded"},
+    "evidence/realignment.py": set(),
+    "evidence/variants.py": set(),
+    "evidence/extraction.py": set(),
+    "evidence/indels.py": set(),
+    "evidence/breakends.py": set(),
+    "evidence/haplotype_block.py": set(),
+    "evidence/methylation.py": set(),
 }
 
 _IMPORT = re.compile(r"^\s*(import\s|from\s+\S+\s+import\s)")

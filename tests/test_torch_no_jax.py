@@ -2,8 +2,10 @@
 
 * a subprocess that blocks ``jax`` and ``jaxlib`` imports the port and runs
   its CLI ``call variants tumor-normal`` and ``filter-calls control-fdr`` on
-  tiny synthetic observation files with ``--device cpu``;
-* ``--device cuda`` on a machine without a usable card raises;
+  tiny synthetic observation files, and ``estimate alignment-properties`` and
+  ``preprocess variants`` on a tiny synthetic BAM world, with ``--device cpu``;
+* ``--device cuda`` on a machine without a usable card raises, for ``call``
+  and for ``preprocess``;
 * no file of the port (nor chip_smoke.py) imports jax.
 """
 
@@ -16,7 +18,10 @@ import pytest
 import torch
 
 from varlociraptor_tpu_torch import cli
-from varlociraptor_tpu_torch.bench_utils import synth_observation_files
+from varlociraptor_tpu_torch.bench_utils import (
+    synth_observation_files,
+    synth_preprocess_world,
+)
 from varlociraptor_tpu_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -29,7 +34,9 @@ sys.modules["jaxlib"] = None
 sys.path.insert(0, sys.argv[1])
 work = sys.argv[2]
 from varlociraptor_tpu_torch import cli
-from varlociraptor_tpu_torch.bench_utils import synth_observation_files
+from varlociraptor_tpu_torch.bench_utils import (
+    synth_observation_files, synth_preprocess_world,
+)
 tumor, normal, _ = synth_observation_files(work, n_loci=40, seed=1)
 assert cli.run(["call", "variants", "tumor-normal", "--tumor", tumor,
                 "--normal", normal, "--purity", "0.75", "--device", "cpu",
@@ -37,6 +44,15 @@ assert cli.run(["call", "variants", "tumor-normal", "--tumor", tumor,
 assert cli.run(["filter-calls", "control-fdr", work + "/calls.vcf", "--events",
                 "somatic_tumor", "--fdr", "0.05", "--output",
                 work + "/kept.vcf"]) == 0
+w = synth_preprocess_world(work + "/world", seed=3, genome_len=8000, coverage=4.0,
+                           n_germline=4, n_somatic=3, n_decoy=3, n_snv=2)
+assert cli.run(["estimate", "alignment-properties", w["fasta"], "--bam",
+                w["normal"]]) == 0
+assert cli.run(["preprocess", "variants", w["fasta"], "--bam", w["tumor"],
+                "--candidates", w["candidates"], "--output", work + "/t.obs",
+                "--device", "cpu"]) == 0
+from varlociraptor_tpu_torch.calling.observations import ObservationReader
+print("PREPROCESSED", len(ObservationReader(work + "/t.obs").read_window(100)[0]))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -52,6 +68,7 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RECORDS 40" in proc.stdout
+    assert "PREPROCESSED 12" in proc.stdout
     assert (tmp_path / "kept.vcf").exists()
 
 
@@ -65,9 +82,21 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
         cli.run(["call", "variants", "tumor-normal", "--tumor", tumor,
                  "--normal", normal, "--device", "cuda", "--output", str(out)])
     assert not out.exists()
+    w = synth_preprocess_world(tmp_path / "world", seed=3, genome_len=8000,
+                               coverage=4.0, n_germline=4, n_somatic=3, n_decoy=3)
+    obs = tmp_path / "t.obs"
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.run(["preprocess", "variants", w["fasta"], "--bam", w["tumor"],
+                 "--candidates", w["candidates"], "--output", str(obs),
+                 "--device", "cuda"])
+    assert not obs.exists()
     # the CLI's default device is the card
     args = cli.build_parser().parse_args(
         ["call", "variants", "tumor-normal", "--tumor", "t", "--normal", "n",
+         "--output", "o"])
+    assert args.device == "cuda"
+    args = cli.build_parser().parse_args(
+        ["preprocess", "variants", "ref.fa", "--bam", "b", "--candidates", "c",
          "--output", "o"])
     assert args.device == "cuda"
 

@@ -1,0 +1,238 @@
+"""The port's pair-HMM (K2, K3 and their dispatcher) against the JAX package.
+
+The port's plain K2 / K3 (``ops/pairhmm_column.py``) run on the CPU against
+
+* the JAX Pallas kernels ``pallas_exact_forward`` / ``pallas_general_forward``
+  in interpret mode (the function the JAX package computes on the TPU), and
+* the JAX log-space wavefront ``_forward_impl`` with the band off, an
+  independent evaluation of the same model,
+
+at 5e-4 relative (tests/test_pallas_pairhmm.py:82-83); an empty read gives
+exactly -1e30.  Where the float32 linear-space column recurrence underflows
+(a read that must insert 30 bases into a 40-base allele without gap
+extension: e^-755), the port and the Pallas kernel both give -1e30 and the
+log-space wavefront a finite value below e^-300.  Inputs: the ragged ``_synth`` sets, N and lowercase bases, a
+read longer than its allele, 250-base reads at quality 2-10 (the 1e16
+rescale fires), the 50-base deletion chain, and alleles over 1024 bases.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import varlociraptor_tpu.ops.pallas_pairhmm as jpp
+from varlociraptor_tpu.estimation.alignment_properties import GapParams, HopParams
+from varlociraptor_tpu.ops.pairhmm import BatchedPairHMM as JaxPairHMM
+from varlociraptor_tpu.ops.pairhmm import NEG_INF, _forward_impl
+from varlociraptor_tpu_torch.bench_utils import pairhmm_edge_items, pairhmm_items
+from varlociraptor_tpu_torch.convert import pairhmm_from_jax
+from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+from varlociraptor_tpu_torch.ops.pairhmm import BatchedPairHMM
+
+TOL = 5e-4
+GAP = np.array([math.log(2.8e-6), math.log(5.1e-6), NEG_INF, NEG_INF], np.float32)
+GAP_ONT = np.log(np.array([5.1e-3, 4.2e-3, 0.35, 0.42])).astype(np.float32)
+DEFAULT_GAPS = GapParams()
+ONT_GAPS = GapParams(*(float(g) for g in GAP_ONT))
+
+
+def _wavefront(alleles, reads, quals, gap):
+    """JAX ``_forward_impl``, full forward (band off)."""
+    B = len(alleles)
+    X = -(-max(len(a) for a in alleles) // 32) * 32
+    Y = max(32, -(-max(len(r) for r in reads) // 32) * 32)
+    al = np.zeros((B, X), np.uint8)
+    rd = np.zeros((B, Y), np.uint8)
+    mis = np.full((B, Y), NEG_INF, np.float32)
+    alen = np.zeros(B, np.int32)
+    rlen = np.zeros(B, np.int32)
+    for b, (a, r, q) in enumerate(zip(alleles, reads, quals)):
+        a = np.frombuffer(bytes(a), np.uint8) & 0xDF
+        al[b, : len(a)] = a
+        rd[b, : len(r)] = np.asarray(r, np.uint8) & 0xDF
+        mis[b, : len(r)] = -np.asarray(q, np.float64) * math.log(10) / 10
+        alen[b], rlen[b] = len(a), len(r)
+    out = _forward_impl(
+        jnp.asarray(al), jnp.asarray(alen), jnp.asarray(rd), jnp.asarray(mis),
+        jnp.asarray(rlen), jnp.asarray(gap), jnp.asarray(np.full(B, -1, np.int32)),
+        X, Y,
+    )
+    return np.asarray(out, dtype=np.float64)
+
+
+def _sets():
+    sets = {"synth3": pairhmm_items(21, 3), "synth11": pairhmm_items(21, 11)}
+    sets.update(pairhmm_edge_items())
+    return sets
+
+
+def _rel(got, ref):
+    ok = ref > -1e29
+    if not ok.any():
+        return 0.0
+    return float(np.max(np.abs(got[ok] - ref[ok]) / np.maximum(np.abs(ref[ok]), 1.0)))
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["k2", "k3"])
+@pytest.mark.parametrize("name", sorted(_sets()))
+def test_plain_kernel_matches_jax(name, general):
+    alleles, reads, quals = _sets()[name]
+    gap = GAP_ONT if general else GAP
+    jax_fn = jpp.pallas_general_forward if general else jpp.pallas_exact_forward
+    got = phc.forward_items(alleles, reads, quals, gap, "cpu", general)
+    pallas = jax_fn(alleles, reads, quals, gap, interpret=True)
+    wave = _wavefront(alleles, reads, quals, gap)
+    assert got.dtype == np.float64 and got.shape == (len(alleles),)
+    # the same items are impossible (-1e30) for the port and the Pallas
+    # kernel; the log-space wavefront may still find a path where the float32
+    # linear-space column kernels underflow, but only one below e^-300
+    assert np.array_equal(got <= -1e29, pallas <= -1e29)
+    assert np.all(wave[got <= -1e29] < -300.0)
+    live = got > -1e29
+    assert _rel(got, pallas) < TOL, _rel(got, pallas)
+    assert _rel(got[live], wave[live]) < TOL, _rel(got[live], wave[live])
+    empty = np.array([len(r) == 0 for r in reads])
+    assert np.all(got[empty] == -1e30)
+
+
+def test_items_are_the_jax_tests_synth_set():
+    from test_pallas_pairhmm import _synth
+
+    for seed in (3, 11):
+        a, r, q = _synth(n=21, seed=seed)
+        b, s, t = pairhmm_items(21, seed)
+        assert a == b
+        assert all(np.array_equal(x, y) for x, y in zip(r, s))
+        assert all(np.array_equal(x, y) for x, y in zip(q, t))
+
+
+def test_pack_matches_jax_byte_for_byte():
+    alleles, reads, quals = pairhmm_items(21, 3)
+    alleles = alleles + [b"acgtNN"]
+    reads = reads + [np.zeros(0, np.uint8)]
+    quals = quals + [np.zeros(0, np.uint8)]
+    (ja, jr, jq, jal, jrl, jc), jn, jx, jy = jpp.pack_exact_batch(alleles, reads, quals, GAP)
+    (ta, tr, tq, tal, trl, tc), tn, tx, ty = phc.pack_exact_batch(alleles, reads, quals, GAP)
+    n = len(alleles)
+    assert (jn, jx, jy) == (tn, tx, ty) == (n, jx, jy)
+    for j, t in ((ja, ta), (jr, tr), (jq, tq)):
+        assert t.dtype == j.dtype == np.uint8
+        assert t.tobytes() == j[:n].tobytes()
+        assert not j[n:].any()  # the TPU's tile padding, which the port drops
+    assert tal.dtype == trl.dtype == np.int32
+    assert np.array_equal(tal, jal[0, :n]) and np.array_equal(trl, jrl[0, :n])
+    assert trl[-1] == 1  # the empty read is clamped to one column
+    assert tc.tobytes() == jc[0].tobytes()
+
+
+def test_general_coef_matches_jax(monkeypatch):
+    seen = {}
+
+    def capture(allele, read, qual, alen, rlen, coef, x_pad, y_pad, interpret=False):
+        seen["coef"] = np.asarray(coef)
+        return jnp.zeros(allele.shape[0], jnp.float32)
+
+    monkeypatch.setattr(jpp, "_pallas_forward_general", capture)
+    alleles, reads, quals = pairhmm_items(4, 3)
+    jpp.pallas_general_forward(alleles, reads, quals, GAP_ONT)
+    assert phc.general_coef(GAP_ONT).tobytes() == seen["coef"][0].tobytes()
+
+
+def _spy(monkeypatch):
+    calls = []
+    for name in ("exact_forward", "general_forward"):
+        fn = getattr(phc, name)
+
+        def spy(*args, _fn=fn, _name=name):
+            calls.append(_name)
+            return _fn(*args)
+
+        monkeypatch.setattr(phc, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize(
+    "gaps,kernel",
+    [(DEFAULT_GAPS, "exact_forward"), (ONT_GAPS, "general_forward"),
+     (GapParams(prob_insertion_extend_artifact=math.log(0.2)), "general_forward")],
+    ids=["zero_extension", "finite_extension", "one_finite_extension"],
+)
+def test_dispatch(monkeypatch, gaps, kernel):
+    calls = _spy(monkeypatch)
+    alleles, reads, quals = pairhmm_items(9, 11)
+    hmm = BatchedPairHMM(gaps, device="cpu")
+    out = hmm.forward(alleles, reads, quals, [None] * len(alleles))
+    assert calls == [kernel]
+    ref = phc.forward_items(alleles, reads, quals, hmm.gap, "cpu", kernel == "general_forward")
+    assert np.array_equal(out, ref)
+
+
+def test_dispatch_refuses_what_is_not_ported():
+    alleles, reads, quals = pairhmm_items(3, 3)
+    with pytest.raises(NotImplementedError, match="A9"):
+        BatchedPairHMM(DEFAULT_GAPS, HopParams(), mode="homopolymer",
+                       device="cpu").forward(alleles, reads, quals)
+    with pytest.raises(RuntimeError, match="no device"):
+        BatchedPairHMM(DEFAULT_GAPS).forward(alleles, reads, quals)
+    with pytest.raises(ValueError):
+        BatchedPairHMM(DEFAULT_GAPS, device="cpu").forward(alleles, reads[:2], quals)
+    assert BatchedPairHMM(DEFAULT_GAPS, device="cpu").forward([], [], []).shape == (0,)
+
+
+@pytest.mark.parametrize("gaps", [DEFAULT_GAPS, ONT_GAPS], ids=["zero", "ont"])
+def test_state_carried_from_jax(gaps):
+    jax_hmm = JaxPairHMM(gaps, hop_params=HopParams(), mode="exact")
+    hmm = pairhmm_from_jax(jax_hmm, "cpu")
+    assert hmm.gap.tobytes() == jax_hmm.gap.tobytes()
+    assert (hmm.mode, hmm.hop, str(hmm.device)) == ("exact", jax_hmm.hop, "cpu")
+    # both packages pack the same coefficient vectors from it
+    _, _, _, _, _, jc = jpp.pack_exact_batch([b"AC"], [b"A"], [b"\x1e"], jax_hmm.gap)[0]
+    assert phc.exact_coef(hmm.gap).tobytes() == jc[0].tobytes()
+
+
+def test_denormals_explain_the_difference_from_xla():
+    """XLA on the CPU (and the TPU) flushes float32 denormals; torch on the
+    CPU and the card keep them.  On reads that align nowhere the f32 forward
+    works at the underflow edge, so the two differ by whole units in the log;
+    with denormals flushed the port reproduces the Pallas kernel, and with
+    them kept it is closer to a float64 evaluation of the same recurrence."""
+    rng = np.random.default_rng(4)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    alleles = [acgt[rng.integers(0, 4, 115)].tobytes() for _ in range(16)]
+    reads = [acgt[rng.integers(0, 4, 100)] for _ in range(16)]
+    quals = [np.clip(rng.normal(36, 3, 100), 10, 41).astype(np.uint8) for _ in range(16)]
+    pallas = jpp.pallas_exact_forward(alleles, reads, quals, GAP, interpret=True)
+    kept = phc.forward_items(alleles, reads, quals, GAP, "cpu", False)
+    torch.set_flush_denormal(True)
+    try:
+        flushed = phc.forward_items(alleles, reads, quals, GAP, "cpu", False)
+    finally:
+        torch.set_flush_denormal(False)
+    assert _rel(flushed, pallas) < TOL
+    exact = np.array([_f64_exact(a, r, q, GAP) for a, r, q in zip(alleles, reads, quals)])
+    assert np.abs(kept - exact).max() <= np.abs(pallas - exact).max()
+
+
+def _f64_exact(allele, read, qual, gap):
+    """The K2 recurrence in float64 without rescaling (reference value)."""
+    a = np.frombuffer(allele, np.uint8) & 0xDF
+    rd = np.asarray(read, np.uint8) & 0xDF
+    mis = np.exp(np.asarray(qual, np.float64) * -math.log(10) / 10)
+    g_mi, g_md = math.exp(gap[0]), math.exp(gap[1])
+    t_mm = 1.0 - g_mi - g_md
+    p1, p2, mprev = np.zeros(len(a)), np.zeros(len(a)), 0.0
+    for j in range(1, len(rd) + 1):
+        rj, mj = rd[j - 1], mis[j - 1]
+        e = np.where(a == rj, 1 - mj, np.where(rj == ord("N"), 0.25, mj / 3))
+        sh1 = np.concatenate([[0.0], p1[:-1]])
+        sh2 = np.concatenate([[0.0, 0.0], p1[:-2]])
+        ins1 = np.concatenate([[0.0], p2[:-1]])
+        start = 1.0 if j == 1 else (g_mi * mis[0] if j == 2 else 0.0)
+        col = e * (t_mm * sh1 + g_md * sh2 + g_mi * mprev * ins1 + start)
+        p2, p1, mprev = p1, col, mj
+    i_sum = mis[-1] * g_mi * ((len(a) + 1) if len(rd) == 1 else p2.sum())
+    return math.log(p1.sum() + i_sum)
+

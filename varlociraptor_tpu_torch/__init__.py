@@ -7,9 +7,11 @@ explicit device, and replaces the reference's Pallas TPU kernels with kernels
 written by hand for NVIDIA Hopper (``csrc/``).  It imports ``torch`` and never
 ``jax``.
 
-Covered so far: the call stage (observation files -> calls VCF -> FDR
-filter) with the tumor-normal posterior engine and the K1 class-likelihood
-kernel.  Run it as ``python -m varlociraptor_tpu_torch``.
+Covered so far: estimate alignment properties -> preprocess (candidates +
+BAM -> observation file, with the K2 / K3 pair-HMM kernels) -> call
+(observation files -> calls VCF, the tumor-normal posterior engine with the
+K1 class-likelihood kernel) -> FDR filter.  Run it as
+``python -m varlociraptor_tpu_torch``.
 """
 
 __version__ = "0.1.0"

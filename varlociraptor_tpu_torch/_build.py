@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, bound with ``ctypes``:
+The sources are compiled at first use with ``nvcc``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, bound with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/<hash>/libvlt_torch_kernels.so \
-         varlociraptor_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c varlociraptor_tpu_torch/csrc/<name>.cu -o <hash>/<name>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o \
+         build/torch_kernels/<hash>/libvlt_torch_kernels.so <hash>/*.o
 
 The output directory is keyed by a hash of the sources, so an edited kernel
 is rebuilt and a clean checkout builds once.  A missing ``nvcc`` or a failed
@@ -71,16 +73,30 @@ def build():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-o", str(tmp),
-        *[str(p) for p in _sources()],
-    ]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in _sources():
+        obj = out.with_name(f"{src.stem}.{os.getpid()}.o")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-c", str(src), "-o", str(obj)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, out)
@@ -97,5 +113,8 @@ def load():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.vlt_ll_classes.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
             lib.vlt_ll_classes.restype = i
+            for fn in (lib.vlt_pairhmm_exact, lib.vlt_pairhmm_general):
+                fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+                fn.restype = i
             _lib = lib
         return _lib

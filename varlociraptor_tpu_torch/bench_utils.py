@@ -93,6 +93,317 @@ def engine_inputs(engine, n_loci=256, depth=64, seed=0):
     return feats, mask, ba, br, by, active, branch_gates, ln_prior_absent
 
 
+def pairhmm_items(n=21, seed=3):
+    """Ragged pair-HMM work items (alleles of 40-300 bases, reads of 1-100
+    bases cut from them with up to 3 edits, flat qualities 20/30/40): the
+    ``_synth`` set of tests/test_pallas_pairhmm.py, drawn from ``random``
+    with the same seed.  Returns (alleles, reads, quals)."""
+    import random
+
+    random.seed(seed)
+    bases = b"ACGT"
+    alleles, reads, quals = [], [], []
+    for _t in range(n):
+        alen = random.choice([40, 100, 192, 300])
+        a = bytes(random.choice(bases) for _ in range(alen))
+        rlen = random.choice([1, 30, 64, 100])
+        p = random.randrange(max(1, alen - rlen)) if alen > rlen else 0
+        r = bytearray(a[p : p + min(rlen, alen)])
+        for _ in range(random.randrange(4)):
+            if not r:
+                break
+            q = random.randrange(len(r))
+            op = random.random()
+            if op < 0.4:
+                r[q] = random.choice(bases)
+            elif op < 0.7:
+                r.insert(q, random.choice(bases))
+            else:
+                del r[q]
+        if not r:
+            r = bytearray(b"A")
+        alleles.append(a)
+        reads.append(np.frombuffer(bytes(r), dtype=np.uint8))
+        quals.append(np.full(len(r), random.choice([20, 30, 40]), dtype=np.uint8))
+    return alleles, reads, quals
+
+
+def pairhmm_edge_items(seed=0):
+    """Edge cases of the pair-HMM kernels, keyed by name, each
+    (alleles, reads, quals): an empty read; N and lowercase bases; a read
+    longer than its allele; 250-base reads at quality 2-10 (the 1e16
+    rescale fires many times); a read bridging a 50-base deletion (the long
+    D chain of tests/test_pallas_pairhmm.py:171-185); alleles longer than
+    1024 bases (several warps per item on the card)."""
+    import random
+
+    rng = np.random.default_rng(seed)
+    u8 = lambda b: np.frombuffer(b, dtype=np.uint8)  # noqa: E731
+
+    def rand_seq(n):
+        return bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), n).tobytes())
+
+    out = {}
+    out["empty_read"] = (
+        [b"ACGTACGTAC", b"ACGTACGTAC"],
+        [np.zeros(0, np.uint8), u8(b"ACGT")],
+        [np.zeros(0, np.uint8), np.full(4, 30, np.uint8)],
+    )
+    a = rand_seq(120)
+    out["n_and_lowercase"] = (
+        [a, a.lower(), a[:50] + b"N" + a[51:]],
+        [u8(a[20:80].lower()), u8(a[20:40] + b"NNN" + a[43:80]), u8(a[30:90])],
+        [np.full(60, 30, np.uint8)] * 3,
+    )
+    a = rand_seq(40)
+    out["read_longer_than_allele"] = (
+        [a, a[:10]],
+        [u8(a + rand_seq(30)), u8(a[:5] + rand_seq(20))],
+        [np.full(70, 35, np.uint8), np.full(25, 12, np.uint8)],
+    )
+    alleles, reads, quals = [], [], []
+    for _ in range(8):
+        a = rand_seq(300)
+        r = bytearray(a[25:275])
+        for p in rng.integers(0, 250, 40):
+            r[p] = rng.choice(np.frombuffer(b"ACGT", np.uint8))
+        alleles.append(a)
+        reads.append(u8(bytes(r)))
+        quals.append(rng.integers(2, 11, 250).astype(np.uint8))
+    out["low_quality_250"] = (alleles, reads, quals)
+    random.seed(5)
+    a = bytes(random.choice(b"ACGT") for _ in range(200))
+    out["long_deletion"] = ([a], [u8(a[10:40] + a[90:120])], [np.full(60, 25, np.uint8)])
+    alleles, reads, quals = [], [], []
+    for alen in (1500, 3000, 1100):
+        a = rand_seq(alen)
+        p = int(rng.integers(0, alen - 100))
+        alleles.append(a)
+        reads.append(u8(a[p : p + 100]))
+        quals.append(np.full(100, 30, np.uint8))
+    out["long_allele"] = (alleles, reads, quals)
+    return out
+
+
+def pairhmm_shape_items(B, X, Y, seed=0, err=0.01):
+    """B work items at one shape: random alleles of X bases, reads of Y bases
+    cut from them at a random offset with ``err`` substitutions, PHRED
+    qualities N(36, 3) clipped to 10-41 (as the simulated libraries have)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    al = acgt[rng.integers(0, 4, (B, X))]
+    off = rng.integers(0, max(1, X - Y + 1), B)
+    rd = al[np.arange(B)[:, None], (off[:, None] + np.arange(Y)[None, :]) % X].copy()
+    sub = rng.random((B, Y)) < err
+    rd[sub] = acgt[rng.integers(0, 4, int(sub.sum()))]
+    ql = np.clip(rng.normal(36, 3, (B, Y)), 10, 41).astype(np.uint8)
+    return [bytes(x) for x in al], list(rd), list(ql)
+
+
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+_OP_M, _OP_I, _OP_D, _OP_S = 0, 1, 2, 4
+
+
+def _haplotype(ref, events):
+    """Apply sorted, non-overlapping events [(pos, kind, length, alt_seq)]
+    (kind "del": delete ref[pos+1 : pos+1+length]; "ins": insert alt_seq
+    after ref[pos]; "snv": ref[pos] -> alt_seq) to ``ref``.  Returns the
+    haplotype (uint8) and, for each of its bases, its reference position
+    (-1 for an inserted base)."""
+    seqs, refpos = [], []
+    cur = 0
+    for pos, kind, length, alt in events:
+        stop = pos + 1 if kind in ("del", "ins") else pos
+        seqs.append(ref[cur:stop])
+        refpos.append(np.arange(cur, stop, dtype=np.int64))
+        if kind == "del":
+            cur = pos + 1 + length
+        elif kind == "ins":
+            seqs.append(np.frombuffer(alt, np.uint8))
+            refpos.append(np.full(length, -1, np.int64))
+            cur = pos + 1
+        else:
+            seqs.append(np.frombuffer(alt, np.uint8))
+            refpos.append(np.array([pos], np.int64))
+            cur = pos + 1
+    seqs.append(ref[cur:])
+    refpos.append(np.arange(cur, len(ref), dtype=np.int64))
+    return np.concatenate(seqs), np.concatenate(refpos)
+
+
+def _cigar(rp):
+    """CIGAR of a read whose bases sit at reference positions ``rp`` (-1:
+    inserted), as an aligner writes it: M runs, I for inserted bases, D for
+    skipped reference bases, S for inserted bases at either end."""
+    aligned = np.nonzero(rp >= 0)[0]
+    first, last = int(aligned[0]), int(aligned[-1])
+    ops = [[_OP_S, first]] if first else []
+
+    def add(op, n):
+        if ops and ops[-1][0] == op:
+            ops[-1][1] += n
+        else:
+            ops.append([op, n])
+
+    prev = -1
+    for p in rp[first : last + 1].tolist():
+        if p < 0:
+            add(_OP_I, 1)
+            continue
+        if prev >= 0 and p != prev + 1:
+            add(_OP_D, p - prev - 1)
+        add(_OP_M, 1)
+        prev = p
+    if last < len(rp) - 1:
+        ops.append([_OP_S, len(rp) - 1 - last])
+    return [(op, n) for op, n in ops]
+
+
+def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
+                      insert_mean, insert_sd, base_error):
+    """Paired-end library over a diploid genome (each fragment samples one
+    haplotype), sorted and written with BamWriter + BAI."""
+    from varlociraptor_tpu.io.bam import BamRecord, BamWriter
+
+    L = read_len
+    n_pairs = int(ref_len * coverage / (2 * L))
+    hsel = rng.integers(0, 2, n_pairs)
+    isize = np.clip(rng.normal(insert_mean, insert_sd, n_pairs), 2 * L + 10,
+                    insert_mean + 5 * insert_sd).astype(np.int64)
+    hap_len = np.array([len(h[0]) for h in haps])
+    fstart = (rng.random(n_pairs) * (hap_len[hsel] - isize)).astype(np.int64)
+    # flat read table: read 2k is the pair's forward first read, 2k+1 its mate
+    start = np.empty(2 * n_pairs, np.int64)
+    start[0::2] = fstart
+    start[1::2] = fstart + isize - L
+    hap_of = np.repeat(hsel, 2)
+    N = 2 * n_pairs
+    seqs = np.empty((N, L), np.uint8)
+    ref_start = np.empty(N, np.int64)
+    ref_end = np.empty(N, np.int64)
+    cigars = [None] * N  # None: one M op of L bases
+    for h, (hseq, hmap) in enumerate(haps):
+        sel = np.nonzero(hap_of == h)[0]
+        s = start[sel]
+        seqs[sel] = hseq[s[:, None] + np.arange(L)[None, :]]
+        ins_cum = np.concatenate([[0], np.cumsum(hmap < 0)])
+        plain = (ins_cum[s + L] == ins_cum[s]) & (hmap[s + L - 1] - hmap[s] == L - 1)
+        ref_start[sel] = hmap[s]
+        ref_end[sel] = hmap[s + L - 1] + 1
+        # reads off the reference's straight line carry an indel (or a clip)
+        for i, si in zip(sel[~plain].tolist(), s[~plain].tolist()):
+            rp = hmap[si : si + L]
+            cigars[i] = _cigar(rp)
+            ref_start[i] = rp[rp >= 0][0]
+            ref_end[i] = rp.max() + 1
+    n_err = rng.binomial(L, base_error, N)
+    rows = np.repeat(np.arange(N), n_err)
+    seqs[rows, rng.integers(0, L, len(rows))] = _ACGT[rng.integers(0, 4, len(rows))]
+    qual_pool = np.clip(rng.normal(36, 3, size=(256, L)), 10, 41).astype(np.uint8)
+    tlen = (np.maximum(ref_end[0::2], ref_end[1::2])
+            - np.minimum(ref_start[0::2], ref_start[1::2]))
+    order = np.argsort(ref_start, kind="stable")
+    w = BamWriter(path, [chrom], [ref_len])
+    for i in order.tolist():
+        k, first = i >> 1, (i & 1) == 0
+        mate = i + 1 if first else i - 1
+        flag = 0x1 | 0x2 | (0x20 if first else 0x10) | (0x40 if first else 0x80)
+        w.write_record(
+            BamRecord(
+                qname=f"frag{k}", flag=flag, tid=0, pos=int(ref_start[i]), mapq=60,
+                cigar=cigars[i] or [(_OP_M, L)], mtid=0, mpos=int(ref_start[mate]),
+                tlen=int(tlen[k]) if first else -int(tlen[k]),
+                seq=seqs[i], qual=qual_pool[k % 256], tags={},
+            )
+        )
+    w.close(index=True)
+    return N
+
+
+def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
+                           read_len=100, insert_mean=350.0, insert_sd=50.0,
+                           base_error=0.003, n_germline=1000, n_somatic=500,
+                           n_decoy=500, n_snv=0, chrom="chr1"):
+    """A tumor/normal preprocess world: FASTA, two indexed BAMs, candidates.
+
+    One random contig of ``genome_len`` bases.  ``n_germline`` heterozygous
+    indels (and ``n_snv`` heterozygous SNVs) sit on haplotype 1 of both
+    samples, ``n_somatic`` indels on haplotype 1 of the tumor only.  Indels
+    are half deletions and half insertions, half of them 1 bp long and the
+    rest 2-10 bp.  Each sample is a paired-end library (``read_len`` x 2 at
+    ``coverage``, insert size N(insert_mean, insert_sd), substitution errors
+    at ``base_error``, PHRED qualities N(36, 3) clipped to 10-41, as
+    scripts/bench_e2e_large.py simulates them); a read that crosses a
+    planted indel carries its D or I op in the CIGAR.  The candidates VCF
+    (position-sorted) lists every planted variant and ``n_decoy`` indels at
+    sites that carry none.
+
+    Returns {"fasta", "tumor", "normal", "candidates", "n_candidates",
+    "reads": {sample: n}, "truth": {"germline", "somatic", "decoy", "snv":
+    0-based VCF positions}}."""
+    from pathlib import Path
+
+    rng = np.random.default_rng(seed)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    ref = _ACGT[rng.integers(0, 4, genome_len)]
+    n_indel = n_germline + n_somatic + n_decoy
+    n_total = n_indel + n_snv
+    gap = max(30, min(300, (genome_len - 1000) // (2 * max(n_total, 1))))
+    slots = np.arange(500, genome_len - 500, gap)
+    if len(slots) < n_total:
+        raise ValueError(f"{n_total} variants do not fit in {genome_len} bases")
+    pos = np.sort(rng.choice(slots, n_total, replace=False))
+    role = rng.permutation(
+        np.repeat(np.arange(4), [n_germline, n_somatic, n_decoy, n_snv])
+    )
+    is_del = rng.permutation(np.arange(n_total) % 2 == 0)
+    length = np.where(rng.permutation(np.arange(n_total)) < n_total // 2, 1,
+                      rng.integers(2, 11, n_total))
+    events, rows = {0: [], 1: [], 2: [], 3: []}, []
+    for p, r, d, ln in zip(pos.tolist(), role.tolist(), is_del.tolist(), length.tolist()):
+        if r == 3:
+            alt = bytes([int(rng.choice(_ACGT[_ACGT != ref[p]]))])
+            ev = (p, "snv", 1, alt)
+            rows.append((p, ref[p : p + 1].tobytes(), alt))
+        elif d:
+            ev = (p, "del", ln, b"")
+            rows.append((p, ref[p : p + 1 + ln].tobytes(), ref[p : p + 1].tobytes()))
+        else:
+            ins = _ACGT[rng.integers(0, 4, ln)].tobytes()
+            ev = (p, "ins", ln, ins)
+            rows.append((p, ref[p : p + 1].tobytes(), ref[p : p + 1].tobytes() + ins))
+        events[r].append(ev)
+    germ = sorted(events[0] + events[3])
+    haps = {
+        "normal": (_haplotype(ref, []), _haplotype(ref, germ)),
+        "tumor": (_haplotype(ref, []), _haplotype(ref, sorted(germ + events[1]))),
+    }
+    fasta = out / "ref.fa"
+    with open(fasta, "w") as f:
+        f.write(f">{chrom}\n")
+        text = ref.tobytes().decode("ascii")
+        f.writelines(text[i : i + 80] + "\n" for i in range(0, genome_len, 80))
+    reads = {}
+    for sample in ("normal", "tumor"):
+        reads[sample] = _simulate_library(
+            out / f"{sample}.bam", chrom, genome_len, haps[sample], rng,
+            coverage, read_len, insert_mean, insert_sd, base_error,
+        )
+    cand = out / "candidates.vcf"
+    with open(cand, "w") as f:
+        f.write("##fileformat=VCFv4.2\n"
+                f"##contig=<ID={chrom},length={genome_len}>\n"
+                "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for p, rb, ab in rows:  # rows follow pos, which is sorted
+            f.write(f"{chrom}\t{p + 1}\t.\t{rb.decode()}\t{ab.decode()}\t.\t.\t.\n")
+    names = ("germline", "somatic", "decoy", "snv")
+    truth = {names[r]: pos[role == r] for r in range(4)}
+    return {"fasta": str(fasta), "tumor": str(out / "tumor.bam"),
+            "normal": str(out / "normal.bam"), "candidates": str(cand),
+            "n_candidates": n_total, "reads": reads, "truth": truth}
+
+
 def synth_observation_files(out_dir, n_loci=1000, seed=0, purity=0.75,
                             frac_somatic=0.05, frac_germline=0.05,
                             min_depth=20, max_depth=64, chrom="chr1"):

@@ -13,6 +13,10 @@ densities_dphred                      +-1 deci-PHRED (int16 rounding); a top-K
 best_nonartifact, map_slot, n_obs     exact
 VCF numbers                           1.1e-4 * max(1, |x|); AFD values +-0.1
                                       PHRED; all other text byte-identical
+observations (preprocess)             prob_alt, prob_ref, prob_missed_allele:
+                                      5e-4 * max(1, |x|) plus one float16 step
+                                      of the file, or both below -30; every
+                                      other field and count identical
 ====================================  ==========================================
 
 The functions return a list of problems (empty = agreement) and report the
@@ -35,6 +39,14 @@ AF_TOL = 1e-4
 REL_TOL = 1e-4
 VCF_REL_TOL = 1.1e-4
 DPHRED_SENTINEL = 32767
+# Observation log-probs derived from the pair-HMM forward.  Below OBS_FLOOR
+# (a normalised allele probability under 1e-13) the float32 forward works at
+# its underflow edge, where the order of roundings (and whether denormals are
+# flushed: XLA on the CPU and the TPU flush them, torch and the card keep
+# them) moves the value by whole units; such a read says nothing for the
+# allele in either run.
+OBS_REL_TOL = 5e-4
+OBS_FLOOR = -30.0
 
 
 def _rel_close(a, b, tol):
@@ -224,3 +236,81 @@ def vcf_record_keys(text):
         for line in text.splitlines()
         if line and not line.startswith("#")
     ]
+
+
+def _read_observations(path, n=None):
+    """(variants, counts, ObsColumns, raw depth) of the first n records of an
+    observation file (all records when n is None)."""
+    from .calling.observations import ObservationReader, ObsColumns
+
+    reader = ObservationReader(str(path))
+    parts = []
+    total = 0
+    try:
+        while n is None or total < n:
+            w = reader.read_window(1024 if n is None else min(1024, n - total))
+            if w is None:
+                break
+            parts.append(w)
+            total += len(w[0])
+    finally:
+        reader.close()
+    if not parts:
+        return [], np.zeros(0, np.int64), ObsColumns.empty(), np.zeros(0)
+    return ([v for p in parts for v in p[0]], np.concatenate([p[1] for p in parts]),
+            ObsColumns.concat([p[2] for p in parts]),
+            np.concatenate([np.asarray(p[3], dtype=object) for p in parts]))
+
+
+def compare_observation_files(ref_path, got_path, n=None, rel_tol=OBS_REL_TOL,
+                              floor=OBS_FLOOR):
+    """Two observation files of the same candidates (first n records).
+
+    Returns (problems, info): records, read counts and every field the
+    pair-HMM does not touch must be identical; prob_alt, prob_ref and
+    prob_missed_allele agree within rel_tol * max(1, |x|) plus one float16
+    step, or both lie below ``floor``.  ``info`` has the record and read
+    counts, the largest relative error of each of the three columns and the
+    number of read values that passed only by the floor."""
+    from .ops.compact_obs import CF_PA, CF_PME, CF_PR
+
+    va, ca, ka, da = _read_observations(ref_path, n)
+    vb, cb, kb, db = _read_observations(got_path, n)
+    problems = []
+    key = lambda v: (v.chrom, v.pos, v.kind, v.ref_allele, v.alt_allele, v.svlen)  # noqa: E731
+    if [key(v) for v in va] != [key(v) for v in vb]:
+        problems.append(f"records differ: {len(va)} vs {len(vb)}")
+        return problems, {}
+    if not np.array_equal(ca, cb):
+        problems.append(f"read counts differ at {int(np.argmax(ca != cb))}")
+        return problems, {}
+    if list(da) != list(db):
+        problems.append("raw depths differ")
+    for name in ("u8", "hil", "third", "frag"):
+        x, y = getattr(ka, name), getattr(kb, name)
+        same = np.array_equal(x, y, equal_nan=True) if x.dtype.kind == "f" else np.array_equal(x, y)
+        if not same:
+            problems.append(f"observation field {name} differs")
+    fa = ka.f16.astype(np.float64)
+    fb = kb.f16.astype(np.float64)
+    hmm_cols = {"prob_alt": CF_PA, "prob_ref": CF_PR, "prob_missed_allele": CF_PME}
+    other = [c for c in range(fa.shape[1]) if c not in hmm_cols.values()]
+    if not np.array_equal(fa[:, other], fb[:, other], equal_nan=True):
+        problems.append("an observation log-prob outside the pair-HMM's differs")
+    max_rel, n_floor = {}, 0
+    for name, c in hmm_cols.items():
+        x, y = fa[:, c], fb[:, c]
+        same = (x == y) | (np.isnan(x) & np.isnan(y))
+        deep = (x < floor) & (y < floor)
+        fin = np.isfinite(x) & np.isfinite(y) & ~same & ~deep
+        n_floor += int((deep & ~same).sum())
+        step = np.spacing(np.abs(x[fin]).astype(np.float16)).astype(np.float64)
+        err = np.abs(x[fin] - y[fin])
+        bad = err > rel_tol * np.maximum(1.0, np.abs(x[fin])) + step
+        max_rel[name] = float(np.max(err / np.maximum(1.0, np.abs(x[fin])))) if fin.any() else 0.0
+        n_bad = int(bad.sum()) + int((~same & ~deep & ~fin).sum())
+        if n_bad:
+            problems.append(f"{name}: {n_bad} reads out of tolerance (max rel {max_rel[name]:.3g})")
+    info = {"records": len(va), "reads": int(ca.sum()), "max_rel": max_rel,
+            "n_below_floor": n_floor}
+    return problems, info

@@ -1,4 +1,5 @@
-"""The engine state carried across from the JAX package.
+"""The state carried across from the JAX package: the posterior engine's
+setup tables and the pair-HMM's gap model.
 
 The posterior engine's "weights" are its setup tables: per-sample active
 subgrids, spectra and integration masks, support classes, the unique
@@ -85,3 +86,18 @@ def engine_state_from_jax(engine) -> dict:
     """Setup tables of a ``varlociraptor_tpu`` (JAX) engine; feed them to
     ``varlociraptor_tpu_torch.ops.posterior.PosteriorEngine.from_state``."""
     return engine_state(engine)
+
+
+def pairhmm_from_jax(jax_hmm, device):
+    """The port's ``BatchedPairHMM`` with the gap model of a JAX
+    ``varlociraptor_tpu.ops.pairhmm.BatchedPairHMM``: its float32 log gap
+    array (``gap``), ``mode`` and hop params are taken as they are, so both
+    packages pack the same coefficient vectors."""
+    from varlociraptor_tpu.estimation.alignment_properties import GapParams
+
+    from .ops.pairhmm import BatchedPairHMM
+
+    hmm = BatchedPairHMM(GapParams(), hop_params=jax_hmm.hop, mode=jax_hmm.mode,
+                         device=device)
+    hmm.gap = np.array(jax_hmm.gap, dtype=np.float32)
+    return hmm

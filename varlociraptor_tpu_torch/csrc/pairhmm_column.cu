@@ -1,0 +1,467 @@
+// K2 and K3: the exact semiglobal pair-HMM forward as a column recurrence.
+//
+// K2 (vlt_pairhmm_exact) replaces varlociraptor_tpu/ops/pallas_pairhmm.py:_kernel,
+// the zero-gap-extension model collapsed to one state and three terms:
+//
+//     M(i,j) = e_m(i,j) * [ t_mm * M(i-1,j-1) + t_dm*t_md * M(i-2,j-1)
+//                           + t_im*t_mi*m_{j-1} * M(i-1,j-2) ]
+//
+// K3 (vlt_pairhmm_general) replaces pallas_pairhmm.py:_kernel_general
+// (_general_body): three states M/I/D with constant finite extensions; the
+// within-column recurrence D(i) = t_md*M(i-1) + t_dd*D(i-1) is a prefix scan.
+//
+// Both: linear-space float32, each work item rescaled by 1e16 when its column
+// maximum falls below 1e-16 (its log scale kept aside), free start and end on
+// the allele axis, the read consumed in full.  The result is
+// log(sum of the last column) - scale, or -1e30 when that sum is 0.  The
+// caller masks empty reads (packed as one pad column) to -1e30.
+//
+// Inputs are the host's row-major uint8 panels: allele [B, Xp], read and
+// PHRED qual [B, Yp]; alen / rlen [B] int32 (1 <= rlen <= Yp); coef [4] or [7]
+// float32 on the device.  The uppercase fold and PHRED -> miscall happen here.
+//
+// What bounds it on an H100: the dependency chain of the column loop.  A
+// work item is ~X*Y cells of ~10 flops each, and its columns are sequential,
+// so the card is filled by running many items at once; bytes are no limit
+// (the panels are read once, ~1 byte per cell row/column).
+//
+// Design: a work item is one warp (or, for Xp > 1024, W = ceil(Xp/1024)
+// warps of one block).  Each lane keeps R consecutive allele positions of the
+// previous column(s) in registers; R, a power of two, is a template
+// parameter chosen from the panel width.  The i-1 and i-2 shifts are register moves plus one
+// __shfl_up_sync at the lane boundary (shared memory at a warp boundary).
+// The read base and miscall of a column are broadcast from the lane that
+// loaded them (32 columns per coalesced load).  The column maximum is a warp
+// reduction; the sums of the last column are taken once, at j = rlen.  K3's D
+// scan runs sequentially inside a lane and as a Kogge-Stone scan of affine
+// carries over lanes (and over warps, in order), which is exact up to float
+// rounding, as the TPU kernel's log-shift scan is.  The column loop stops at
+// the item's own rlen, which gives what the TPU kernel's frozen output gives.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float RESCALE_THRESH = 1e-16f;
+constexpr float RESCALE = 1e16f;
+constexpr float LOG_RESCALE = 36.841361487904734f;  // log(1e16)
+constexpr float EMPTY = -1e30f;
+constexpr float NEG_LN10_10 = -0.23025850929940458f;  // -ln(10)/10
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_WARPS = 32;        // warps of one item: Xp <= 32*32*32
+constexpr int ITEMS_PER_BLOCK = 4;   // when one warp holds an item
+
+// Shared scratch of the multi-warp items (Xp > 1024); unused otherwise.
+struct Scratch {
+  float bnd[3][MAX_WARPS];   // lane 31's last values of each warp, previous column
+  float mx[MAX_WARPS];       // per-warp column maxima
+  float sum[2][MAX_WARPS];   // per-warp sums of the last column
+  float carry[MAX_WARPS];    // K3: per-warp D-scan totals
+};
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// Maximum over the item's warps.
+template <bool MULTI>
+__device__ __forceinline__ float item_max(float v, Scratch& s, int w, int W,
+                                          int lane) {
+  v = warp_max(v);
+  if (!MULTI) return v;
+  if (lane == 0) s.mx[w] = v;
+  __syncthreads();
+  float r = s.mx[0];
+  for (int k = 1; k < W; ++k) r = fmaxf(r, s.mx[k]);
+  return r;
+}
+
+// Sums of two values over the item's warps (warp partials added in order).
+template <bool MULTI>
+__device__ __forceinline__ void item_sum2(float& a, float& b, Scratch& s, int w,
+                                          int W, int lane) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (!MULTI) return;
+  if (lane == 0) {
+    s.sum[0][w] = a;
+    s.sum[1][w] = b;
+  }
+  __syncthreads();
+  a = 0.0f;
+  b = 0.0f;
+  for (int k = 0; k < W; ++k) {
+    a += s.sum[0][k];
+    b += s.sum[1][k];
+  }
+}
+
+// The value of the lane to the left (allele positions below p0): within the
+// warp by shuffle, across a warp boundary from the previous column's shared
+// copy, and `edge` for the item's first lane.
+template <bool MULTI>
+__device__ __forceinline__ float from_left(float mine, const float* bnd, int w,
+                                           int lane, float edge) {
+  float v = __shfl_up_sync(FULL, mine, 1);
+  if (lane == 0) v = (MULTI && w > 0) ? bnd[w - 1] : edge;
+  return v;
+}
+
+// Publish lane 31's last values for the next column's left neighbours.
+template <bool MULTI>
+__device__ __forceinline__ void publish(Scratch& s, int w, int lane, float b0,
+                                        float b1, float b2) {
+  if (!MULTI) return;
+  if (lane == 31) {
+    s.bnd[0][w] = b0;
+    s.bnd[1][w] = b1;
+    s.bnd[2][w] = b2;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float emission(uint8_t a, bool valid, uint8_t rj,
+                                          float mj) {
+  if (!valid) return 0.0f;
+  if (a == rj) return 1.0f - mj;
+  return rj == 'N' ? 0.25f : mj * (1.0f / 3.0f);
+}
+
+// Read base and miscall of column j (1-based), broadcast from the lane that
+// holds them; every 32 columns the warp loads the next 32 with one access.
+struct ReadCursor {
+  const uint8_t* read;
+  const uint8_t* qual;
+  int Yp;
+  int base;
+  float mis;
+
+  __device__ __forceinline__ void get(int j, int lane, uint8_t& rj, float& mj) {
+    const int idx = j - 1;
+    if ((idx & 31) == 0) {
+      const int c = idx + lane;
+      base = c < Yp ? (read[c] & 0xDF) : 0;
+      mis = expf((c < Yp ? (float)qual[c] : 0.0f) * NEG_LN10_10);
+    }
+    rj = (uint8_t)__shfl_sync(FULL, base, idx & 31);
+    mj = __shfl_sync(FULL, mis, idx & 31);
+  }
+};
+
+struct ItemIndex {
+  int item, w, lane, p0;
+};
+
+// One warp per item and ITEMS_PER_BLOCK items per block, or (MULTI) one
+// block of W warps per item.  Lane `lane` of warp `w` holds allele rows
+// p0 .. p0+R-1 (row k is allele position k+1).
+template <int R, bool MULTI>
+__device__ __forceinline__ ItemIndex item_index() {
+  ItemIndex ix;
+  ix.lane = threadIdx.x & 31;
+  ix.item = MULTI ? blockIdx.x : blockIdx.x * ITEMS_PER_BLOCK + (threadIdx.x >> 5);
+  ix.w = MULTI ? (threadIdx.x >> 5) : 0;
+  ix.p0 = (ix.w * 32 + ix.lane) * R;
+  return ix;
+}
+
+template <int R>
+__device__ __forceinline__ void load_allele(const uint8_t* row, int Xp, int p0,
+                                            uint8_t (&al)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = p0 + r;
+    al[r] = p < Xp ? (row[p] & 0xDF) : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: zero gap extension
+// ---------------------------------------------------------------------------
+
+template <int R, bool MULTI>
+__global__ void __launch_bounds__(MULTI ? 1024 : 32 * ITEMS_PER_BLOCK)
+pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
+                     const uint8_t* __restrict__ read,
+                     const uint8_t* __restrict__ qual,
+                     const int* __restrict__ alen_p,
+                     const int* __restrict__ rlen_p,
+                     const float* __restrict__ coef, float* __restrict__ out,
+                     int B, int Xp, int Yp, int W) {
+  __shared__ Scratch s;
+  const ItemIndex ix = item_index<R, MULTI>();
+  if (ix.item >= B) return;  // a whole warp; the MULTI grid is exact
+  const long long item = ix.item;
+  const float t_mm = coef[0], c_del = coef[1], c_ins = coef[2], t_mi = coef[3];
+  const int alen = alen_p[item];
+  const int rlen = min(max(rlen_p[item], 1), Yp);
+
+  uint8_t al[R];
+  load_allele<R>(allele + item * Xp, Xp, ix.p0, al);
+  float p1[R], p2[R];  // M of column j-1, and of column j-2 (scaled)
+#pragma unroll
+  for (int r = 0; r < R; ++r) p1[r] = p2[r] = 0.0f;
+  publish<MULTI>(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);
+
+  ReadCursor rc{read + item * Yp, qual + item * Yp, Yp, 0, 0.0f};
+  float scale = 0.0f, mprev = 0.0f, m1 = 0.0f;
+  for (int j = 1; j <= rlen; ++j) {
+    uint8_t rj;
+    float mj;
+    rc.get(j, ix.lane, rj, mj);
+    if (j == 1) m1 = mj;
+    const float up1 = from_left<MULTI>(p1[R - 1], s.bnd[0], ix.w, ix.lane, 0.0f);
+    const float up2 = from_left<MULTI>(p1[R - 2], s.bnd[1], ix.w, ix.lane, 0.0f);
+    const float uq1 = from_left<MULTI>(p2[R - 1], s.bnd[2], ix.w, ix.lane, 0.0f);
+    // free start: M at column 1, and the insertion at column 1 into column 2
+    const float start = (j == 1) ? expf(-scale)
+                        : (j == 2 ? c_ins * m1 * expf(-scale) : 0.0f);
+    const float c_im = c_ins * mprev;
+    float cmax = 0.0f;
+    // descending, so that rows r-1 and r-2 still hold column j-1
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      const int r1 = r >= 1 ? r - 1 : 0;
+      const int r2 = r >= 2 ? r - 2 : 0;
+      const float sh1 = r >= 1 ? p1[r1] : up1;
+      const float sh2 = r >= 2 ? p1[r2] : (r == 1 ? up1 : up2);
+      const float ins1 = r >= 1 ? p2[r1] : uq1;
+      const float bracket = t_mm * sh1 + c_del * sh2 + c_im * ins1;
+      const float col = emission(al[r], ix.p0 + r < alen, rj, mj) * (bracket + start);
+      p2[r] = p1[r];
+      p1[r] = col;
+      cmax = fmaxf(cmax, col);
+    }
+    cmax = item_max<MULTI>(cmax, s, ix.w, W, ix.lane);
+    if (cmax > 0.0f && cmax < RESCALE_THRESH) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        p1[r] *= RESCALE;
+        p2[r] *= RESCALE;
+      }
+      scale += LOG_RESCALE;
+    }
+    if (j == rlen) {
+      // free end on the allele axis: all M and I cells of the last column
+      float m_sum = 0.0f, p_sum = 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        m_sum += p1[r];
+        p_sum += p2[r];
+      }
+      item_sum2<MULTI>(m_sum, p_sum, s, ix.w, W, ix.lane);
+      const float i_sum = (j == 1)
+          ? mj * t_mi * ((float)alen + 1.0f) * expf(-scale)
+          : mj * t_mi * p_sum;
+      const float fin = m_sum + i_sum;
+      if (ix.w == 0 && ix.lane == 0)
+        out[item] = (fin > 0.0f ? logf(fin) : EMPTY) - scale;
+    }
+    mprev = mj;
+    publish<MULTI>(s, ix.w, ix.lane, p1[R - 1], p1[R - 2], p2[R - 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: constant finite extensions, three states
+// ---------------------------------------------------------------------------
+
+template <int R, bool MULTI>
+__global__ void __launch_bounds__(MULTI ? 1024 : 32 * ITEMS_PER_BLOCK)
+pairhmm_general_kernel(const uint8_t* __restrict__ allele,
+                       const uint8_t* __restrict__ read,
+                       const uint8_t* __restrict__ qual,
+                       const int* __restrict__ alen_p,
+                       const int* __restrict__ rlen_p,
+                       const float* __restrict__ coef, float* __restrict__ out,
+                       int B, int Xp, int Yp, int W) {
+  __shared__ Scratch s;
+  const ItemIndex ix = item_index<R, MULTI>();
+  if (ix.item >= B) return;
+  const long long item = ix.item;
+  const float t_mm = coef[0], t_dm = coef[1], t_im = coef[2], t_mi = coef[3];
+  const float t_md = coef[4], t_ii = coef[5], t_dd = coef[6];
+  const int alen = alen_p[item];
+  const int rlen = min(max(rlen_p[item], 1), Yp);
+  // carry factors of the D scan: across one lane (R rows), across one warp,
+  // and from lane 0 of this warp to this lane
+  const float a_lane = powf(t_dd, (float)R);
+  const float a_warp = powf(t_dd, (float)(32 * R));
+  const float a_mine = powf(a_lane, (float)ix.lane);
+
+  uint8_t al[R];
+  load_allele<R>(allele + item * Xp, Xp, ix.p0, al);
+  float m[R], ip[R], d[R];  // M, I, D of the previous column
+#pragma unroll
+  for (int r = 0; r < R; ++r) m[r] = ip[r] = d[r] = 0.0f;
+  publish<MULTI>(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);
+
+  ReadCursor rc{read + item * Yp, qual + item * Yp, Yp, 0, 0.0f};
+  float scale = 0.0f, i0 = 0.0f;  // i0: I before allele position 1
+  for (int j = 1; j <= rlen; ++j) {
+    uint8_t rj;
+    float mj;
+    rc.get(j, ix.lane, rj, mj);
+    const float um = from_left<MULTI>(m[R - 1], s.bnd[0], ix.w, ix.lane, 0.0f);
+    const float ud = from_left<MULTI>(d[R - 1], s.bnd[1], ix.w, ix.lane, 0.0f);
+    const float ui = from_left<MULTI>(ip[R - 1], s.bnd[2], ix.w, ix.lane, i0);
+    const float startm = (j == 1) ? expf(-scale) : 0.0f;
+    const float start_i = (j == 1) ? mj * t_mi : 0.0f;
+    float cmax = 0.0f;
+    // descending, so that row r-1 still holds column j-1
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      const int r1 = r >= 1 ? r - 1 : 0;
+      const float ms = r >= 1 ? m[r1] : um;
+      const float ds = r >= 1 ? d[r1] : ud;
+      const float is = r >= 1 ? ip[r1] : ui;
+      const bool valid = ix.p0 + r < alen;
+      const float mc = emission(al[r], valid, rj, mj) *
+                       (t_mm * ms + t_dm * ds + t_im * is + startm);
+      const float ic = mj * (t_mi * m[r] + t_ii * ip[r]) + (valid ? start_i : 0.0f);
+      m[r] = mc;
+      ip[r] = ic;
+      cmax = fmaxf(cmax, fmaxf(mc, ic));
+    }
+    float i0c = mj * t_ii * i0 + start_i;
+    cmax = item_max<MULTI>(cmax, s, ix.w, W, ix.lane);
+    if (cmax > 0.0f && cmax < RESCALE_THRESH) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        m[r] *= RESCALE;
+        ip[r] *= RESCALE;
+      }
+      i0c *= RESCALE;
+      scale += LOG_RESCALE;
+    }
+
+    // D of this column.  E(k) = D(k+1) = t_md*M(k) + t_dd*E(k-1) needs no
+    // neighbour's M: scan E inside the lane from a zero carry, then carry in
+    // E(p0-1) from the lanes (and warps) to the left.
+    float e_loc[R];
+    e_loc[0] = t_md * m[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r) e_loc[r] = t_md * m[r] + t_dd * e_loc[r - 1];
+    float incl = e_loc[R - 1];  // inclusive over lanes, zero carry into lane 0
+    float a_s = a_lane;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(FULL, incl, o);
+      if (ix.lane >= o) incl += a_s * v;
+      a_s *= a_s;
+    }
+    float c_warp = 0.0f;  // E at the last row of the previous warp
+    if (MULTI) {
+      if (ix.lane == 31) s.carry[ix.w] = incl;
+      __syncthreads();
+      for (int k = 0; k < ix.w; ++k) c_warp = s.carry[k] + a_warp * c_warp;
+    }
+    const float left = __shfl_up_sync(FULL, incl, 1);
+    const float c_in = ix.lane == 0 ? c_warp : left + a_mine * c_warp;  // E(p0-1)
+    float t_pow = t_dd;
+    d[0] = c_in;
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      d[r] = e_loc[r - 1] + t_pow * c_in;
+      t_pow *= t_dd;
+    }
+
+    if (j == rlen) {
+      float m_sum = 0.0f, i_sum = 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        m_sum += m[r];
+        i_sum += ip[r];
+      }
+      item_sum2<MULTI>(m_sum, i_sum, s, ix.w, W, ix.lane);
+      const float fin = m_sum + i_sum + i0c;
+      if (ix.w == 0 && ix.lane == 0)
+        out[item] = (fin > 0.0f ? logf(fin) : EMPTY) - scale;
+    }
+    i0 = i0c;
+    publish<MULTI>(s, ix.w, ix.lane, m[R - 1], d[R - 1], ip[R - 1]);
+  }
+}
+
+// Rows per lane: the smallest power of two >= per_lane (at least 2, for
+// the i-2 shift).
+int pick_r(int per_lane) {
+  int r = 2;
+  while (r < per_lane) r *= 2;
+  return r;
+}
+
+template <bool GENERAL, int R, bool MULTI>
+void launch_r(dim3 grid, dim3 block, cudaStream_t st, const uint8_t* allele,
+              const uint8_t* read, const uint8_t* qual, const int* alen,
+              const int* rlen, const float* coef, float* out, int B, int Xp,
+              int Yp, int W) {
+  if (GENERAL)
+    pairhmm_general_kernel<R, MULTI><<<grid, block, 0, st>>>(
+        allele, read, qual, alen, rlen, coef, out, B, Xp, Yp, W);
+  else
+    pairhmm_exact_kernel<R, MULTI><<<grid, block, 0, st>>>(
+        allele, read, qual, alen, rlen, coef, out, B, Xp, Yp, W);
+}
+
+template <bool GENERAL>
+int launch(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
+           const int* alen, const int* rlen, const float* coef, float* out,
+           int B, int Xp, int Yp, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (Xp <= 0 || Yp <= 0 || Xp > MAX_WARPS * 32 * 32)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (Xp > 32 * 32) {  // W warps of 32 rows per lane, one block per item
+    const int W = (Xp + 32 * 32 - 1) / (32 * 32);
+    launch_r<GENERAL, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual,
+                                alen, rlen, coef, out, B, Xp, Yp, W);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((B + ITEMS_PER_BLOCK - 1) / ITEMS_PER_BLOCK);
+  const dim3 block(32 * ITEMS_PER_BLOCK);
+#define VLT_CASE(r)                                                          \
+  case r:                                                                    \
+    launch_r<GENERAL, r, false>(grid, block, st, allele, read, qual, alen,   \
+                                rlen, coef, out, B, Xp, Yp, 1);              \
+    break;
+  switch (pick_r((Xp + 31) / 32)) {
+    VLT_CASE(2) VLT_CASE(4) VLT_CASE(8) VLT_CASE(16) VLT_CASE(32)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VLT_CASE
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entries for ctypes.  They launch on `stream` and return
+// cudaGetLastError() (0 = launched).  Device pointers: allele [B, Xp], read
+// and qual [B, Yp] uint8 row-major; alen, rlen [B] int32; coef [4] (K2:
+// t_mm, t_dm*t_md, t_im*t_mi, t_mi) or [7] (K3: t_mm, t_dm, t_im, t_mi, t_md,
+// t_ii, t_dd) float32; out [B] float32.
+extern "C" int vlt_pairhmm_exact(const uint8_t* allele, const uint8_t* read,
+                                 const uint8_t* qual, const int* alen,
+                                 const int* rlen, const float* coef, float* out,
+                                 int B, int Xp, int Yp, void* stream) {
+  return launch<false>(allele, read, qual, alen, rlen, coef, out, B, Xp, Yp,
+                       stream);
+}
+
+extern "C" int vlt_pairhmm_general(const uint8_t* allele, const uint8_t* read,
+                                   const uint8_t* qual, const int* alen,
+                                   const int* rlen, const float* coef,
+                                   float* out, int B, int Xp, int Yp,
+                                   void* stream) {
+  return launch<true>(allele, read, qual, alen, rlen, coef, out, B, Xp, Yp,
+                      stream);
+}

@@ -1,8 +1,8 @@
-"""Where the call stage's time goes on one card.
+"""Where the call stage's and preprocess's time goes on one card.
 
     python -m varlociraptor_tpu_torch.trace_call [--out DIR] [--loci N]
 
-Three measurements, each printed as one JSON line:
+Five measurements, each printed as one JSON line:
 
   engine   one ``PosteriorEngine.run`` at the bench shape (32768 loci, depth
            64, resolution 0.01) under ``torch.profiler``: device time by
@@ -10,7 +10,13 @@ Three measurements, each printed as one JSON line:
            wall time of a plain call for comparison;
   cli      ``call variants tumor-normal --device cuda`` on N synthetic loci
            under ``torch.profiler``: the device's busy share of the wall;
-  host     the same CLI run under ``cProfile``: host time by function.
+  host     the same CLI run under ``cProfile``: host time by function;
+  preprocess
+           ``preprocess variants --device cuda`` of the tumor of a 500 kb,
+           30x ``synth_preprocess_world`` (500 indel candidates) under
+           ``torch.profiler``: the device's busy share, device time by kernel;
+  preprocess_host
+           the same run under ``cProfile``: host time by function.
 
 The engine's Chrome trace and the full tables go to DIR (default
 build/trace_call/report); the synthetic files and calls to build/trace_call.
@@ -27,6 +33,7 @@ import pstats
 import subprocess
 import sys
 import time
+from contextlib import redirect_stderr, redirect_stdout
 from pathlib import Path
 
 import torch
@@ -111,16 +118,61 @@ def trace_cli(out_dir, work, n_loci):
     stats = pstats.Stats(prof_host, stream=buf).sort_stats("cumulative")
     stats.print_stats(60)
     (out_dir / "cli_host_profile.txt").write_text(buf.getvalue())
-    own = sorted(
-        ((f"{Path(k[0]).name}:{k[1]}:{k[2]}", v[2]) for k, v in stats.stats.items()),
-        key=lambda x: -x[1],
-    )[:15]
     return [
         {"phase": "cli", "n_loci": n_loci, "wall_s": wall_s,
          "loci_per_s": n_loci / wall_s, "device_busy_s": busy,
          "device_busy_share": busy / wall_s, "top_device": _device_table(prof, 8)},
         {"phase": "host", "n_loci": n_loci, "wall_s_under_cprofile": host_wall,
-         "top_self_s": [{"fn": f, "s": s} for f, s in own]},
+         "top_self_s": _top_self(stats)},
+    ]
+
+
+def _top_self(stats, n=15):
+    own = sorted(
+        ((f"{Path(k[0]).name}:{k[1]}:{k[2]}", v[2]) for k, v in stats.stats.items()),
+        key=lambda x: -x[1],
+    )[:n]
+    return [{"fn": f, "s": s} for f, s in own]
+
+
+def trace_preprocess(out_dir, work):
+    from . import cli
+    from .bench_utils import synth_preprocess_world
+
+    w = synth_preprocess_world(work / "world", seed=0, genome_len=500_000,
+                               n_germline=250, n_somatic=125, n_decoy=125)
+    props = work / "props.json"
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        cli.run(["estimate", "alignment-properties", w["fasta"], "--bam", w["normal"]])
+    props.write_text(buf.getvalue())
+    argv = ["preprocess", "variants", w["fasta"], "--bam", w["tumor"], "--candidates",
+            w["candidates"], "--alignment-properties", str(props), "--output",
+            str(work / "tumor.obs"), "--device", "cuda"]
+    with redirect_stderr(io.StringIO()):
+        cli.run(argv)  # warm-up: kernel library, allocator
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cli.run(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        prof_host = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof_host.runcall(cli.run, argv)
+        host_wall = time.perf_counter() - t0
+    busy = _device_busy_s(prof)
+    buf = io.StringIO()
+    stats = pstats.Stats(prof_host, stream=buf).sort_stats("cumulative")
+    stats.print_stats(80)
+    (out_dir / "preprocess_host_profile.txt").write_text(buf.getvalue())
+    n = w["n_candidates"]
+    return [
+        {"phase": "preprocess", "candidates": n, "wall_s": wall_s,
+         "loci_per_s": n / wall_s, "device_busy_s": busy,
+         "device_busy_share": busy / wall_s, "top_device": _device_table(prof, 8)},
+        {"phase": "preprocess_host", "candidates": n, "wall_s_under_cprofile": host_wall,
+         "top_self_s": _top_self(stats)},
     ]
 
 
@@ -143,6 +195,8 @@ def main(argv=None):
     print(smi, flush=True)
     print(json.dumps(trace_engine(out_dir)), flush=True)
     for line in trace_cli(out_dir, work, args.loci):
+        print(json.dumps(line), flush=True)
+    for line in trace_preprocess(out_dir, work):
         print(json.dumps(line), flush=True)
     return 0
 

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
-with nvcc (sm_90a, one process per source), then runs five phases, each
+with nvcc (sm_90a, one process per source), then runs seven phases, each
 printing one JSON line:
 
   (a) kernel_vs_plain  K1 against its plain torch version on the card, at the
@@ -17,6 +17,11 @@ printing one JSON line:
                        sets (empty read, N / lowercase, read longer than its
                        allele, 250-base low-quality reads, the long deletion
                        chain, alleles over 1024 bases); timed with CUDA events.
+  (a'') positional_vs_plain
+                       K4 against its plain torch version on the card, on the
+                       sets of (a'), with ONT-like base gap rates and hop rates
+                       of 0.05 for every base inside homopolymer runs (the gap
+                       panels built on the card); timed with CUDA events.
   (b) engine           the tumor-normal engine (resolution 0.01) on 32768
                        synthetic loci at depth 64, every output copied to the
                        host; K1 must launch twice per call; the first 1024 loci
@@ -35,10 +40,19 @@ printing one JSON line:
                        the first 192 loci of each sample (compared), ``call
                        variants tumor-normal --device cuda`` and
                        ``filter-calls control-fdr``.
+  (e) homopolymer      the same at full width with the world's homopolymer
+                       profile (runs of 5-12 bases, half of the indels as
+                       run-length changes, reads that slip in runs):
+                       ``estimate`` (finite hop params for all four bases),
+                       ``preprocess variants --pairhmm-mode homopolymer
+                       --device cuda`` (both samples; K4 launches, K2 and K3
+                       do not), the 192-locus ``--device cpu`` re-preprocess
+                       (compared), call and FDR.
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
 launches counted in phase (c), K2 and K3 with those counted in phase (d)'s
-preprocess steps; the last line is {"ok": true, "device": {...}}.  Any failure exits non-zero, and without a
+preprocess steps, K4 with those of phase (e)'s; the last line is
+{"ok": true, "device": {...}}.  Any failure exits non-zero, and without a
 CUDA device the script exits non-zero before printing anything.  Scratch
 files go to build/chip_smoke/ inside the checkout.
 """
@@ -60,6 +74,7 @@ K1_TOL = 5e-5  # x max(1, |x|); f32 logs summed in another order
 K23_SOURCE = "varlociraptor_tpu_torch/csrc/pairhmm_column.cu"
 K2_REPLACES = "varlociraptor_tpu/ops/pallas_pairhmm.py:60"
 K3_REPLACES = "varlociraptor_tpu/ops/pallas_pairhmm.py:290"
+K4_REPLACES = "varlociraptor_tpu/ops/pallas_pairhmm.py:296"
 # x max(1, |x|): f32 column sums in another order, the D scan in another
 # association; -1e30 (impossible) must match exactly
 K23_TOL = 1e-4
@@ -67,6 +82,9 @@ K23_TOL = 1e-4
 # and ONT-like finite extensions (tests/test_pallas_pairhmm.py)
 GAP_ZERO = (-12.785891140783116, -12.186270018233994, -1e30, -1e30)
 GAP_ONT = (-5.278515, -5.472671, -1.049822, -0.867501)
+# homopolymer hop rates of phase (a''): ln 0.05 for every base, open == extend
+# as the estimator gives them
+HOP_LN = -2.995732273553991
 
 
 class PhaseError(RuntimeError):
@@ -372,10 +390,39 @@ def pairhmm_sets():
     return sets
 
 
-def phase_pairhmm_vs_plain(timer=cuda_ms):
+def pairhmm_case(kind, name, fn, ref_fn, dev, timer):
+    """One pair-HMM kernel against its plain version on the same device
+    tensors (allele, read, qual, alen, rlen, ...): the same finiteness and
+    -1e30 items, the rest within K23_TOL x max(1, |x|); at 4096 items and
+    more both are timed."""
     import numpy as np
     import torch
 
+    g = fn(*dev).cpu().numpy()
+    torch.cuda.synchronize()
+    r = ref_fn(*dev).cpu().numpy()
+    if not np.array_equal(np.isfinite(g), np.isfinite(r)):
+        raise PhaseError(f"{kind} {name}: finiteness differs from the plain version")
+    if not np.array_equal(g <= -1e30, r <= -1e30):
+        raise PhaseError(f"{kind} {name}: -1e30 results differ from the plain version")
+    live = r > -1e30
+    err = np.abs(g[live] - r[live]) if live.any() else np.zeros(1)
+    rel = float(np.max(err / np.maximum(1.0, np.abs(r[live])))) if live.any() else 0.0
+    if not rel <= K23_TOL:
+        raise PhaseError(f"{kind} {name}: rel err {rel} > {K23_TOL}")
+    n, Xp = dev[0].shape
+    case = {"kernel": kind, "case": name, "B": n, "Xp": Xp, "Yp": dev[1].shape[1],
+            "impossible": int((~live).sum()), "max_abs_err": float(err.max()),
+            "max_rel_err": rel}
+    if n >= 4096:
+        case["ms"] = timer(lambda: fn(*dev), 10)
+        case["plain_ms"] = timer(lambda: ref_fn(*dev), 2)
+        cells = (dev[3].double() * dev[4].double()).sum().item()
+        case["gcells_per_s"] = cells / case["ms"] / 1e6
+    return case
+
+
+def phase_pairhmm_vs_plain(timer=cuda_ms):
     from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
     out = {"phase": "pairhmm_vs_plain", "tol_rel": K23_TOL, "cases": []}
@@ -383,49 +430,53 @@ def phase_pairhmm_vs_plain(timer=cuda_ms):
     bench = {}
     for name, alleles, reads, quals in pairhmm_sets():
         for kind, gap in (("exact", GAP_ZERO), ("general", GAP_ONT)):
-            args, n, Xp, Yp = phc.pack_exact_batch(alleles, reads, quals, gap)
+            args, _, _, _ = phc.pack_exact_batch(alleles, reads, quals, gap)
             if kind == "general":
                 args = args[:5] + (phc.general_coef(gap),)
             dev = phc.to_device(args, "cuda")
-            fn = getattr(phc, f"{kind}_forward")
-            ref_fn = getattr(phc, f"{kind}_forward_reference")
-            g = fn(*dev).cpu().numpy()
-            torch.cuda.synchronize()
-            r = ref_fn(*dev).cpu().numpy()
-            if not np.array_equal(np.isfinite(g), np.isfinite(r)):
-                raise PhaseError(f"{kind} {name}: finiteness differs from the plain version")
-            if not np.array_equal(g <= -1e30, r <= -1e30):
-                raise PhaseError(f"{kind} {name}: -1e30 results differ from the plain version")
-            live = r > -1e30
-            err = np.abs(g[live] - r[live]) if live.any() else np.zeros(1)
-            rel = float(np.max(err / np.maximum(1.0, np.abs(r[live])))) if live.any() else 0.0
-            if not rel <= K23_TOL:
-                raise PhaseError(f"{kind} {name}: rel err {rel} > {K23_TOL}")
-            worst[kind] = max(worst[kind], float(err.max()))
-            case = {"kernel": kind, "case": name, "B": n, "Xp": Xp, "Yp": Yp,
-                    "impossible": int((~live).sum()), "max_abs_err": float(err.max()),
-                    "max_rel_err": rel}
-            if n >= 4096:
-                case["ms"] = timer(lambda: fn(*dev), 10)
-                case["plain_ms"] = timer(lambda: ref_fn(*dev), 2)
-                case["gcells_per_s"] = float((np.asarray(args[3], np.float64)
-                                              * args[4]).sum() / case["ms"] / 1e6)
+            case = pairhmm_case(kind, name, getattr(phc, f"{kind}_forward"),
+                                getattr(phc, f"{kind}_forward_reference"), dev, timer)
+            worst[kind] = max(worst[kind], case["max_abs_err"])
+            if "ms" in case:
                 bench[kind] = case
             out["cases"].append(case)
     out["max_abs_err"] = worst
     return out, bench
 
 
+def phase_positional_vs_plain(timer=cuda_ms):
+    """(a''): K4 on the sets of (a'), the gap panels built on the card."""
+    from varlociraptor_tpu.estimation.alignment_properties import HopParams
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    hop = HopParams(*([[HOP_LN] * 4] * 4))
+    out = {"phase": "positional_vs_plain", "tol_rel": K23_TOL, "hop_ln": HOP_LN,
+           "gap": GAP_ONT, "cases": []}
+    bench, worst = None, 0.0
+    for name, alleles, reads, quals in pairhmm_sets():
+        dev = phc.positional_args(alleles, reads, quals, GAP_ONT, hop, "cuda")
+        case = pairhmm_case("positional", name, phc.positional_forward,
+                            phc.positional_forward_reference, dev, timer)
+        worst = max(worst, case["max_abs_err"])
+        if "ms" in case:
+            bench = case
+        out["cases"].append(case)
+    out["max_abs_err"] = worst
+    return out, bench
+
+
 @contextlib.contextmanager
 def timed_pairhmm():
-    """CUDA-event device time and work items of every K2 / K3 launch inside
-    the block (events around the kernel launch helper; counts untouched)."""
+    """CUDA-event device time and work items of every K2 / K3 / K4 launch
+    inside the block (events around the kernel launch helper; counts
+    untouched)."""
     import torch
 
     from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
     launch = phc._launch
-    events = {"vlt_pairhmm_exact": [], "vlt_pairhmm_general": []}
+    events = {"vlt_pairhmm_exact": [], "vlt_pairhmm_general": [],
+              "vlt_pairhmm_positional": []}
     items = dict.fromkeys(events, 0)
 
     def timed(fn_name, *args):
@@ -471,86 +522,46 @@ def cli_quiet(argv, stdout=None):
         return cli.run(argv)
 
 
-def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
-                     n_decoy=500, n_rerun=200, n_cpu=192, device="cuda"):
+def estimate_props(w, path, secs):
+    """``estimate alignment-properties`` on the normal BAM into ``path``."""
     import io
-    import json as _json
 
-    import numpy as np
+    from varlociraptor_tpu.estimation.alignment_properties import AlignmentProperties
 
-    from varlociraptor_tpu.estimation.alignment_properties import (
-        AlignmentProperties,
-        GapParams,
-    )
-    from varlociraptor_tpu.io import native
-    from varlociraptor_tpu_torch.bench_utils import synth_preprocess_world
-    from varlociraptor_tpu_torch.calling.preprocess import PreprocessOptions, preprocess
-    from varlociraptor_tpu_torch.compare import compare_observation_files, vcf_record_keys
-    from varlociraptor_tpu_torch.ops import ll_classes as k1
-    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
-
-    res = {"phase": "preprocess", "native_host_library": native.available()}
-    secs = res["seconds"] = {}
-    t0 = time.perf_counter()
-    w = synth_preprocess_world(work / "world", seed=0, genome_len=genome_len,
-                               n_germline=n_germline, n_somatic=n_somatic,
-                               n_decoy=n_decoy)
-    secs["world"] = time.perf_counter() - t0
-    n = w["n_candidates"]
-    res.update(genome_len=genome_len, candidates=n, reads=w["reads"])
-
-    # 1. estimate on the normal BAM, then preprocess both samples on the card
-    props_path = work / "props.json"
     buf = io.StringIO()
     t0 = time.perf_counter()
     rc = cli_quiet(["estimate", "alignment-properties", w["fasta"], "--bam", w["normal"]],
                    stdout=buf)
     secs["estimate"] = time.perf_counter() - t0
-    props_path.write_text(buf.getvalue())
-    props = AlignmentProperties.from_json(buf.getvalue())
-    gp = props.gap_params
-    finite = [np.isfinite(gp.prob_insertion_extend_artifact),
-              np.isfinite(gp.prob_deletion_extend_artifact)]
-    res["gap_model"] = {"estimated": _json.loads(props.to_json())["gap_params"],
-                        "kernel": "K2" if not any(finite) else "K3"}
-    phc.exact_forward.launches = phc.general_forward.launches = 0  # main path
-    obs, forwards = {}, {}
-    with timed_pairhmm() as hmm_stats:
-        for sample in ("tumor", "normal"):
-            obs[sample] = str(work / f"{sample}.obs")
-            t0 = time.perf_counter()
-            rc |= cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w[sample],
-                             "--candidates", w["candidates"], "--output", obs[sample],
-                             "--sample-name", sample, "--alignment-properties",
-                             str(props_path), "--device", device])
-            secs[f"preprocess_{sample}"] = time.perf_counter() - t0
-        # 2. the other gap model on the first n_rerun normal candidates
-        other = AlignmentProperties.from_json(props.to_json())
-        other.gap_params = (GapParams() if any(finite) else GapParams(*GAP_ONT))
-        other_path = work / "props_other.json"
-        other_path.write_text(other.to_json())
-        head = work / f"candidates_{n_rerun}.vcf"
-        head_of_vcf(w["candidates"], head, n_rerun)
+    if rc != 0:
+        raise PhaseError(f"estimate returned {rc}")
+    path.write_text(buf.getvalue())
+    return AlignmentProperties.from_json(buf.getvalue())
+
+
+def preprocess_samples(w, work, props_path, secs, device, flags=()):
+    """``preprocess variants`` of both samples; returns their files."""
+    obs, rc = {}, 0
+    for sample in ("tumor", "normal"):
+        obs[sample] = str(work / f"{sample}.obs")
         t0 = time.perf_counter()
-        rc |= cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w["normal"],
-                         "--candidates", str(head), "--output", str(work / "normal_other.obs"),
-                         "--alignment-properties", str(other_path), "--device", device])
-        secs["preprocess_normal_other_model"] = time.perf_counter() - t0
-    launches = {"exact": phc.exact_forward.launches, "general": phc.general_forward.launches}
+        rc |= cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w[sample],
+                         "--candidates", w["candidates"], "--output", obs[sample],
+                         "--sample-name", sample, "--alignment-properties",
+                         str(props_path), "--device", device, *flags])
+        secs[f"preprocess_{sample}"] = time.perf_counter() - t0
     if rc != 0:
         raise PhaseError(f"preprocess: the CLI returned {rc}")
-    if min(launches.values()) == 0:
-        raise PhaseError(f"preprocess: a pair-HMM kernel never launched: {launches}")
-    res["pairhmm_launches"] = launches
-    res["pairhmm_device_ms"] = {"K2": hmm_stats["vlt_pairhmm_exact"]["ms"],
-                                "K3": hmm_stats["vlt_pairhmm_general"]["ms"]}
-    res["pairhmm_forwards"] = {"K2": hmm_stats["vlt_pairhmm_exact"]["forwards"],
-                               "K3": hmm_stats["vlt_pairhmm_general"]["forwards"]}
-    res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
-    pre_s = secs["preprocess_tumor"] + secs["preprocess_normal"] + secs["preprocess_normal_other_model"]
-    res["pairhmm_device_share_of_preprocess"] = sum(res["pairhmm_device_ms"].values()) / 1e3 / pre_s
+    return obs
 
-    # 3. the first n_cpu loci again on the CPU (plain K2 / K3), same chunk
+
+def cpu_recheck(w, work, props_path, obs, secs, n_cpu, mode="exact"):
+    """The first n_cpu loci of each sample again on the CPU (the plain
+    kernels), same chunk; the observations must equal the card's."""
+    from varlociraptor_tpu.estimation.alignment_properties import AlignmentProperties
+    from varlociraptor_tpu_torch.calling.preprocess import PreprocessOptions, preprocess
+    from varlociraptor_tpu_torch.compare import compare_observation_files
+
     head_cpu = work / f"candidates_{n_cpu}.vcf"
     head_of_vcf(w["candidates"], head_cpu, n_cpu)
     cmp = {}
@@ -559,16 +570,24 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
         t0 = time.perf_counter()
         preprocess(str(head_cpu), w[sample], w["fasta"], str(cpu_obs), sample_name=sample,
                    alignment_properties=AlignmentProperties.from_json(props_path.read_text()),
-                   options=PreprocessOptions(device_chunk=64, log_mode="silent"),
+                   options=PreprocessOptions(device_chunk=64, log_mode="silent",
+                                             pairhmm_mode=mode),
                    device="cpu")
         secs[f"cpu_preprocess_{sample}_{n_cpu}"] = time.perf_counter() - t0
         problems, info = compare_observation_files(cpu_obs, obs[sample], n=n_cpu)
         if problems:
             raise PhaseError(f"preprocess cuda vs cpu ({sample}): " + "; ".join(problems[:3]))
         cmp[sample] = info
-    res["cuda_vs_cpu"] = cmp
+    return cmp
 
-    # 4. call on the card and control the FDR
+
+def call_and_filter(w, work, obs, secs, res, device):
+    """Call on the card, control the FDR, score against the world's truth."""
+    import numpy as np
+
+    from varlociraptor_tpu_torch.compare import vcf_record_keys
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+
     calls, kept = work / "pp_calls.vcf", work / "pp_somatic.fdr.vcf"
     k1.ll_classes.launches = 0
     t0 = time.perf_counter()
@@ -582,7 +601,7 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
                      "--fdr", "0.05", "--output", str(kept)])
     secs["fdr"] = time.perf_counter() - t0
     if rc != 0:
-        raise PhaseError(f"preprocess phase: call / filter returned {rc}")
+        raise PhaseError(f"{res['phase']}: call / filter returned {rc}")
     n_called = len(vcf_record_keys(calls.read_text()))
     kept_pos = np.array([int(k[1]) - 1 for k in vcf_record_keys(kept.read_text())], np.int64)
     truth = w["truth"]
@@ -592,9 +611,149 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
         germline_kept=int(np.isin(truth["germline"], kept_pos).sum()),
         decoys_kept=int(np.isin(truth["decoy"], kept_pos).sum()),
     )
-    if n_called != n or len(kept_pos) == 0 or res["k1_launches"] == 0:
-        raise PhaseError(f"preprocess phase: called {n_called} of {n}, kept "
+    if "in_run" in truth:
+        in_run = truth["somatic"][np.isin(truth["somatic"], truth["in_run"])]
+        res["planted_somatic_in_run_recall"] = float(np.isin(in_run, kept_pos).mean())
+    if n_called != w["n_candidates"] or len(kept_pos) == 0 or res["k1_launches"] == 0:
+        raise PhaseError(f"{res['phase']}: called {n_called} of {w['n_candidates']}, kept "
                          f"{len(kept_pos)}, K1 launches {res['k1_launches']}")
+
+
+def pairhmm_times(res, hmm_stats, pre_s):
+    names = {"K2": "vlt_pairhmm_exact", "K3": "vlt_pairhmm_general",
+             "K4": "vlt_pairhmm_positional"}
+    res["pairhmm_device_ms"] = {k: hmm_stats[v]["ms"] for k, v in names.items()}
+    res["pairhmm_forwards"] = {k: hmm_stats[v]["forwards"] for k, v in names.items()}
+    res["pairhmm_device_share_of_preprocess"] = (
+        sum(res["pairhmm_device_ms"].values()) / 1e3 / pre_s)
+
+
+def reset_pairhmm_counts():
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    for fn in (phc.exact_forward, phc.general_forward, phc.positional_forward):
+        fn.launches = 0
+
+
+def pairhmm_counts():
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    return {"exact": phc.exact_forward.launches, "general": phc.general_forward.launches,
+            "positional": phc.positional_forward.launches}
+
+
+def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
+                     n_decoy=500, n_rerun=200, n_cpu=192, device="cuda"):
+    import json as _json
+
+    import numpy as np
+
+    from varlociraptor_tpu.estimation.alignment_properties import (
+        AlignmentProperties,
+        GapParams,
+    )
+    from varlociraptor_tpu.io import native
+    from varlociraptor_tpu_torch.bench_utils import synth_preprocess_world
+
+    res = {"phase": "preprocess", "native_host_library": native.available()}
+    secs = res["seconds"] = {}
+    t0 = time.perf_counter()
+    w = synth_preprocess_world(work / "world", seed=0, genome_len=genome_len,
+                               n_germline=n_germline, n_somatic=n_somatic,
+                               n_decoy=n_decoy)
+    secs["world"] = time.perf_counter() - t0
+    n = w["n_candidates"]
+    res.update(genome_len=genome_len, candidates=n, reads=w["reads"])
+
+    # 1. estimate on the normal BAM, then preprocess both samples on the card
+    props_path = work / "props.json"
+    props = estimate_props(w, props_path, secs)
+    gp = props.gap_params
+    finite = [np.isfinite(gp.prob_insertion_extend_artifact),
+              np.isfinite(gp.prob_deletion_extend_artifact)]
+    res["gap_model"] = {"estimated": _json.loads(props.to_json())["gap_params"],
+                        "kernel": "K2" if not any(finite) else "K3"}
+    reset_pairhmm_counts()  # main path
+    with timed_pairhmm() as hmm_stats:
+        obs = preprocess_samples(w, work, props_path, secs, device)
+        # 2. the other gap model on the first n_rerun normal candidates
+        other = AlignmentProperties.from_json(props.to_json())
+        other.gap_params = (GapParams() if any(finite) else GapParams(*GAP_ONT))
+        other_path = work / "props_other.json"
+        other_path.write_text(other.to_json())
+        head = work / f"candidates_{n_rerun}.vcf"
+        head_of_vcf(w["candidates"], head, n_rerun)
+        t0 = time.perf_counter()
+        rc = cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w["normal"],
+                        "--candidates", str(head), "--output", str(work / "normal_other.obs"),
+                        "--alignment-properties", str(other_path), "--device", device])
+        secs["preprocess_normal_other_model"] = time.perf_counter() - t0
+    launches = pairhmm_counts()
+    if rc != 0:
+        raise PhaseError(f"preprocess: the CLI returned {rc}")
+    if min(launches["exact"], launches["general"]) == 0 or launches["positional"]:
+        raise PhaseError(f"preprocess: K2 and K3 must launch, K4 not: {launches}")
+    res["pairhmm_launches"] = launches
+    res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
+    pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"]
+                  + secs["preprocess_normal_other_model"])
+
+    # 3. the first n_cpu loci again on the CPU (plain K2 / K3), same chunk
+    res["cuda_vs_cpu"] = cpu_recheck(w, work, props_path, obs, secs, n_cpu)
+    # 4. call on the card and control the FDR
+    call_and_filter(w, work, obs, secs, res, device)
+    return res, launches
+
+
+def phase_homopolymer(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
+                      n_decoy=500, n_cpu=192, device="cuda"):
+    """(e): phase (d)'s pipeline on the homopolymer world, in the
+    homopolymer pair-HMM mode (K4 with the estimated hop params)."""
+    import json as _json
+
+    import numpy as np
+
+    from varlociraptor_tpu_torch.bench_utils import synth_preprocess_world
+
+    res = {"phase": "homopolymer"}
+    secs = res["seconds"] = {}
+    t0 = time.perf_counter()
+    w = synth_preprocess_world(work / "world", seed=0, genome_len=genome_len,
+                               n_germline=n_germline, n_somatic=n_somatic,
+                               n_decoy=n_decoy, homopolymer=True)
+    secs["world"] = time.perf_counter() - t0
+    n = w["n_candidates"]
+    res.update(genome_len=genome_len, candidates=n, reads=w["reads"],
+               indels_in_runs=int(len(w["truth"]["in_run"])))
+
+    # 1. estimate: hop params for every base, or K4 would not be reached
+    props_path = work / "props.json"
+    props = estimate_props(w, props_path, secs)
+    est = _json.loads(props.to_json())
+    res["hop_params"], res["gap_params"] = est["hop_params"], est["gap_params"]
+    hop = props.hop_params
+    values = [hop.prob_seq_homopolymer, hop.prob_ref_homopolymer,
+              hop.prob_seq_extend_homopolymer, hop.prob_ref_extend_homopolymer]
+    if not np.isfinite(np.asarray(values, np.float64)).all():
+        raise PhaseError(f"homopolymer: the estimate gave non-finite hop params {values}")
+
+    # 2. preprocess both samples on the card in homopolymer mode
+    reset_pairhmm_counts()  # main path
+    with timed_pairhmm() as hmm_stats:
+        obs = preprocess_samples(w, work, props_path, secs, device,
+                                 flags=("--pairhmm-mode", "homopolymer"))
+    launches = pairhmm_counts()
+    if launches["positional"] == 0 or launches["exact"] or launches["general"]:
+        raise PhaseError(f"homopolymer: K4 must launch, K2 and K3 not: {launches}")
+    res["pairhmm_launches"] = launches
+    res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
+    pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"])
+
+    # 3. the first n_cpu loci again on the CPU (plain K4)
+    res["cuda_vs_cpu"] = cpu_recheck(w, work, props_path, obs, secs, n_cpu,
+                                     mode="homopolymer")
+    # 4. call on the card and control the FDR
+    call_and_filter(w, work, obs, secs, res, device)
     return res, launches
 
 
@@ -636,11 +795,16 @@ def main():
     emit(a)
     a2, hmm_bench = phase_pairhmm_vs_plain()
     emit(a2)
+    a3, k4_bench = phase_positional_vs_plain()
+    emit(a3)
     emit(phase_engine(engine))
     c, launches = phase_cli(work)
     emit(c)
     d, hmm_launches = phase_preprocess(work)
     emit(d)
+    (work / "homopolymer").mkdir()
+    e, hp_launches = phase_homopolymer(work / "homopolymer")
+    emit(e)
     repo_attempts = []
     for name, stack in refuse_jax.attempts:
         print(f"chip_smoke: refused an import of {name} from:\n{stack}", file=sys.stderr)
@@ -658,7 +822,12 @@ def main():
         "replaces": replaces, "launches": hmm_launches[kind],
         "max_abs_err": a2["max_abs_err"][kind], "ms": hmm_bench[kind]["ms"],
         "plain_ms": hmm_bench[kind]["plain_ms"],
-    } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))]})
+    } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))] + [{
+        "name": "pairhmm_positional", "route": "cuda", "source": K23_SOURCE,
+        "replaces": K4_REPLACES, "launches": hp_launches["positional"],
+        "max_abs_err": a3["max_abs_err"], "ms": k4_bench["ms"],
+        "plain_ms": k4_bench["plain_ms"],
+    }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels on the card: K1 (csrc/ll_classes.cu),
-K2 and K3 (csrc/pairhmm_column.cu).
+K2, K3 and K4 (csrc/pairhmm_column.cu).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false.  On a machine with an NVIDIA card and nvcc:
@@ -7,7 +7,7 @@ false.  On a machine with an NVIDIA card and nvcc:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Tolerances: K1 against its plain torch version 5e-5 * max(1, |x|) with the
-same finiteness (float32 logs, read sums in another order); K2 and K3
+same finiteness (float32 logs, read sums in another order); K2, K3 and K4
 against theirs 1e-4 * max(1, |x|) (float32 column sums in another order, the
 D scan in another association), the same finiteness and -1e30 exactly where
 the plain version gives it; the engine on the card against the engine on
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from varlociraptor_tpu.estimation.alignment_properties import HopParams
 from varlociraptor_tpu_torch.bench_utils import (
     engine_inputs,
     pairhmm_edge_items,
@@ -39,6 +40,8 @@ PAIRHMM_TOL = 1e-4
 # and ONT-like finite extensions (tests/test_pallas_pairhmm.py)
 GAP = np.array([math.log(2.8e-6), math.log(5.1e-6), -1e30, -1e30], np.float32)
 GAP_ONT = np.log(np.array([5.1e-3, 4.2e-3, 0.35, 0.42])).astype(np.float32)
+# homopolymer hop params as the estimator gives them: open == extend
+HOP = HopParams(*([[math.log(0.05)] * 4] * 4))
 
 
 @pytest.fixture
@@ -159,3 +162,44 @@ def test_pairhmm_wrapper_checks_its_inputs(card):
     with pytest.raises(ValueError):
         phc.exact_forward(a, r, q, al.cpu(), rl, coef)
     assert phc.exact_forward.launches == n0
+
+
+@pytest.mark.parametrize("name", sorted(_pairhmm_sets()))
+def test_positional_kernel_matches_plain(card, name):
+    """K4 against its plain version on the card (ONT-like base rates, hop
+    rates of 0.05 inside runs), and the whole item path against the CPU."""
+    alleles, reads, quals = _pairhmm_sets()[name]
+    args = phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, card)
+    n0 = phc.positional_forward.launches
+    got = phc.positional_forward(*args)
+    torch.cuda.synchronize()
+    assert phc.positional_forward.launches == n0 + 1
+    ref = phc.positional_forward_reference(*args)
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    assert g.shape == (len(alleles),) and got.dtype == torch.float32
+    assert np.array_equal(np.isfinite(g), np.isfinite(r))
+    assert np.array_equal(g == -1e30, r == -1e30)
+    ok = r > -1e30
+    err = np.abs(g[ok] - r[ok]) / np.maximum(1.0, np.abs(r[ok]))
+    assert np.all(err <= PAIRHMM_TOL), (name, err.max())
+    items = phc.forward_items(alleles, reads, quals, GAP_ONT, card, True, hop=HOP)
+    cpu = phc.forward_items(alleles, reads, quals, GAP_ONT, "cpu", True, hop=HOP)
+    assert np.array_equal(items == -1e30, cpu == -1e30)
+    ok = cpu > -1e30
+    assert np.all(np.abs(items[ok] - cpu[ok]) <= PAIRHMM_TOL * np.maximum(1, np.abs(cpu[ok])))
+
+
+def test_positional_wrapper_checks_its_inputs(card):
+    alleles, reads, quals = pairhmm_items(8, 3)
+    a, r, q, al, rl, io, ie, do, de = phc.positional_args(alleles, reads, quals, GAP_ONT,
+                                                          HOP, card)
+    n0 = phc.positional_forward.launches
+    with pytest.raises(TypeError, match="float32"):
+        phc.positional_forward(a, r, q, al, rl, io.double(), ie, do, de)
+    with pytest.raises(ValueError, match="do must be"):
+        phc.positional_forward(a, r, q, al, rl, io, ie, io, de)
+    with pytest.raises(ValueError, match="contiguous"):
+        phc.positional_forward(a, r, q, al, rl, io, ie, do[:, ::2], de)
+    with pytest.raises(ValueError):
+        phc.positional_forward(a, r, q, al, rl, io, ie, do, de.cpu())
+    assert phc.positional_forward.launches == n0

@@ -3,7 +3,8 @@
 * a subprocess that blocks ``jax`` and ``jaxlib`` imports the port and runs
   its CLI ``call variants tumor-normal`` and ``filter-calls control-fdr`` on
   tiny synthetic observation files, and ``estimate alignment-properties`` and
-  ``preprocess variants`` on a tiny synthetic BAM world, with ``--device cpu``;
+  ``preprocess variants`` (default and ``--pairhmm-mode homopolymer`` with
+  hop params) on a tiny synthetic BAM world, with ``--device cpu``;
 * ``--device cuda`` on a machine without a usable card raises, for ``call``
   and for ``preprocess``;
 * no file of the port (nor chip_smoke.py) imports jax.
@@ -46,13 +47,32 @@ assert cli.run(["filter-calls", "control-fdr", work + "/calls.vcf", "--events",
                 work + "/kept.vcf"]) == 0
 w = synth_preprocess_world(work + "/world", seed=3, genome_len=8000, coverage=4.0,
                            n_germline=4, n_somatic=3, n_decoy=3, n_snv=2)
-assert cli.run(["estimate", "alignment-properties", w["fasta"], "--bam",
-                w["normal"]]) == 0
+import contextlib, io, math
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert cli.run(["estimate", "alignment-properties", w["fasta"], "--bam",
+                    w["normal"]]) == 0
+from varlociraptor_tpu.estimation.alignment_properties import (
+    AlignmentProperties, HopParams,
+)
+props = AlignmentProperties.from_json(buf.getvalue())
+props.hop_params = HopParams(*([[math.log(0.05)] * 4] * 4))
+open(work + "/props.json", "w").write(props.to_json())
 assert cli.run(["preprocess", "variants", w["fasta"], "--bam", w["tumor"],
                 "--candidates", w["candidates"], "--output", work + "/t.obs",
                 "--device", "cpu"]) == 0
+from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+k4 = phc.positional_forward
+k4_calls = []
+phc.positional_forward = lambda *a: k4_calls.append(1) or k4(*a)
+assert cli.run(["preprocess", "variants", w["fasta"], "--bam", w["tumor"],
+                "--candidates", w["candidates"], "--output", work + "/t_hp.obs",
+                "--alignment-properties", work + "/props.json",
+                "--pairhmm-mode", "homopolymer", "--device", "cpu"]) == 0
 from varlociraptor_tpu_torch.calling.observations import ObservationReader
 print("PREPROCESSED", len(ObservationReader(work + "/t.obs").read_window(100)[0]))
+print("HOMOPOLYMER", len(ObservationReader(work + "/t_hp.obs").read_window(100)[0]),
+      "K4", bool(k4_calls))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -69,6 +89,7 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RECORDS 40" in proc.stdout
     assert "PREPROCESSED 12" in proc.stdout
+    assert "HOMOPOLYMER 12 K4 True" in proc.stdout
     assert (tmp_path / "kept.vcf").exists()
 
 

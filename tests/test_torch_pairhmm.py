@@ -1,11 +1,13 @@
-"""The port's pair-HMM (K2, K3 and their dispatcher) against the JAX package.
+"""The port's pair-HMM (K2, K3, K4 and their dispatcher) against the JAX package.
 
-The port's plain K2 / K3 (``ops/pairhmm_column.py``) run on the CPU against
+The port's plain K2 / K3 / K4 (``ops/pairhmm_column.py``) run on the CPU
+against
 
 * the JAX Pallas kernels ``pallas_exact_forward`` / ``pallas_general_forward``
-  in interpret mode (the function the JAX package computes on the TPU), and
-* the JAX log-space wavefront ``_forward_impl`` with the band off, an
-  independent evaluation of the same model,
+  / ``pallas_positional_forward`` in interpret mode (the function the JAX
+  package computes on the TPU), and
+* the JAX log-space wavefronts ``_forward_impl`` / ``_forward_hp_impl`` with
+  the band off, independent evaluations of the same models,
 
 at 5e-4 relative (tests/test_pallas_pairhmm.py:82-83); an empty read gives
 exactly -1e30.  Where the float32 linear-space column recurrence underflows
@@ -14,6 +16,9 @@ extension: e^-755), the port and the Pallas kernel both give -1e30 and the
 log-space wavefront a finite value below e^-300.  Inputs: the ragged ``_synth`` sets, N and lowercase bases, a
 read longer than its allele, 250-base reads at quality 2-10 (the 1e16
 rescale fires), the 50-base deletion chain, and alleles over 1024 bases.
+K4's gap panels (``positional_gaps``) are bit-identical to the ones the JAX
+package's TPU route builds (``_positional_gaps`` on the raw bytes, then
+``_linpanel``).
 """
 
 import math
@@ -26,7 +31,7 @@ import torch
 import varlociraptor_tpu.ops.pallas_pairhmm as jpp
 from varlociraptor_tpu.estimation.alignment_properties import GapParams, HopParams
 from varlociraptor_tpu.ops.pairhmm import BatchedPairHMM as JaxPairHMM
-from varlociraptor_tpu.ops.pairhmm import NEG_INF, _forward_impl
+from varlociraptor_tpu.ops.pairhmm import NEG_INF, _forward_hp_impl, _forward_impl
 from varlociraptor_tpu_torch.bench_utils import pairhmm_edge_items, pairhmm_items
 from varlociraptor_tpu_torch.convert import pairhmm_from_jax
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc
@@ -37,6 +42,11 @@ GAP = np.array([math.log(2.8e-6), math.log(5.1e-6), NEG_INF, NEG_INF], np.float3
 GAP_ONT = np.log(np.array([5.1e-3, 4.2e-3, 0.35, 0.42])).astype(np.float32)
 DEFAULT_GAPS = GapParams()
 ONT_GAPS = GapParams(*(float(g) for g in GAP_ONT))
+LN_005 = math.log(0.05)
+# the estimator's shape (open == extend), and one with -inf and small entries
+HOP = HopParams(*([[LN_005] * 4] * 4))
+HOP_MIXED = HopParams([LN_005, -math.inf, -20.0, -3.0], [-2.5, LN_005, -math.inf, -9.0],
+                      [-1.0, -math.inf, -0.5, -30.0], [-math.inf, -1.2, -0.7, -0.1])
 
 
 def _wavefront(alleles, reads, quals, gap):
@@ -143,7 +153,7 @@ def test_general_coef_matches_jax(monkeypatch):
 
 def _spy(monkeypatch):
     calls = []
-    for name in ("exact_forward", "general_forward"):
+    for name in ("exact_forward", "general_forward", "positional_forward"):
         fn = getattr(phc, name)
 
         def spy(*args, _fn=fn, _name=name):
@@ -170,11 +180,29 @@ def test_dispatch(monkeypatch, gaps, kernel):
     assert np.array_equal(out, ref)
 
 
+@pytest.mark.parametrize(
+    "gaps,hop,kernel",
+    [(DEFAULT_GAPS, HOP, "positional_forward"), (ONT_GAPS, HOP, "positional_forward"),
+     (DEFAULT_GAPS, HopParams(), "positional_forward"),
+     (DEFAULT_GAPS, None, "exact_forward"), (ONT_GAPS, None, "general_forward")],
+    ids=["hop_zero_ext", "hop_finite_ext", "hop_all_inf", "no_hop_zero_ext", "no_hop_finite_ext"],
+)
+def test_dispatch_homopolymer(monkeypatch, gaps, hop, kernel):
+    """mode="homopolymer" goes to K4 whenever hop params are given (the
+    estimate's default HopParams() of -inf included), whatever the gap
+    model; without hop params to K2 / K3, as in the JAX package."""
+    calls = _spy(monkeypatch)
+    alleles, reads, quals = pairhmm_items(9, 11)
+    hmm = BatchedPairHMM(gaps, hop, mode="homopolymer", device="cpu")
+    out = hmm.forward(alleles, reads, quals, [None] * len(alleles))
+    assert calls == [kernel]
+    ref = phc.forward_items(alleles, reads, quals, hmm.gap, "cpu",
+                            kernel == "general_forward", hop=hop)
+    assert np.array_equal(out, ref)
+
+
 def test_dispatch_refuses_what_is_not_ported():
     alleles, reads, quals = pairhmm_items(3, 3)
-    with pytest.raises(NotImplementedError, match="A9"):
-        BatchedPairHMM(DEFAULT_GAPS, HopParams(), mode="homopolymer",
-                       device="cpu").forward(alleles, reads, quals)
     with pytest.raises(RuntimeError, match="no device"):
         BatchedPairHMM(DEFAULT_GAPS).forward(alleles, reads, quals)
     with pytest.raises(ValueError):
@@ -191,6 +219,202 @@ def test_state_carried_from_jax(gaps):
     # both packages pack the same coefficient vectors from it
     _, _, _, _, _, jc = jpp.pack_exact_batch([b"AC"], [b"A"], [b"\x1e"], jax_hmm.gap)[0]
     assert phc.exact_coef(hmm.gap).tobytes() == jc[0].tobytes()
+
+
+def test_state_carried_from_jax_homopolymer(monkeypatch):
+    """A JAX homopolymer ``BatchedPairHMM`` maps to a port one whose gap
+    panels and K4 results agree with the JAX kernel route's."""
+    jax_hmm = JaxPairHMM(ONT_GAPS, hop_params=HOP_MIXED, mode="homopolymer")
+    hmm = pairhmm_from_jax(jax_hmm, "cpu")
+    assert hmm.gap.tobytes() == jax_hmm.gap.tobytes()
+    assert (hmm.mode, hmm.hop) == ("homopolymer", jax_hmm.hop)
+    alleles, reads, quals = _homopolymer_items(12, 5)
+    jax_out, panels = _jax_k4_route(monkeypatch, jax_hmm, alleles, reads, quals)
+    assert _rel(hmm.forward(alleles, reads, quals), jax_out) < TOL
+    for got, ref in zip(_port_panels(hmm, alleles, reads, quals), panels):
+        assert got.tobytes() == ref.tobytes()
+
+
+def _homopolymer_items(n, seed):
+    """Ragged items whose alleles and reads hold homopolymer runs (2-12
+    bases), the read cut from its allele with a run-length slip, N bases,
+    lowercase stretches, and an empty read."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    alleles, reads, quals = [], [], []
+    for k in range(n):
+        runs = acgt[rng.integers(0, 4, 40)]
+        lens = rng.integers(1, 13, 40)
+        a = np.repeat(runs, lens)[: int(rng.integers(30, 200))].copy()
+        a[rng.random(len(a)) < 0.03] = ord("N")
+        lo = int(rng.integers(0, max(1, len(a) - 60)))
+        r = a[lo : lo + int(rng.integers(20, 100))].copy()
+        if len(r) > 12:  # a slip: one run base more or less
+            q = int(rng.integers(1, len(r) - 1))
+            r = np.insert(r, q, r[q]) if k % 2 else np.delete(r, q)
+        if k % 3 == 0:
+            a[5:25] |= 0x20  # lowercase (N stays N: 0x4E | 0x20 = 'n')
+            r[:10] |= 0x20
+        if k == n - 1:
+            r = np.zeros(0, np.uint8)
+        alleles.append(a.tobytes())
+        reads.append(r)
+        quals.append(rng.integers(10, 41, len(r)).astype(np.uint8))
+    return alleles, reads, quals
+
+
+def _jax_k4_route(monkeypatch, jax_hmm, alleles, reads, quals):
+    """The JAX package's K4 route (Pallas in interpret mode) and the LINEAR
+    io / ie / do / de panels it hands the kernel, cut to the items."""
+    monkeypatch.setenv("VLT_NATIVE_PAIRHMM", "0")
+    monkeypatch.setenv("VLT_PALLAS_PAIRHMM", "1")
+    # tests/test_hop_pairhmm.py turns the hop-state mode on when imported
+    monkeypatch.setenv("VLT_HOP_STATES", "0")
+    seen = {}
+    jit_fn = jpp._pallas_forward_positional
+
+    def capture(allele, read, qual, alen, rlen, io, ie, do, de, x_pad, y_pad, interpret=False):
+        seen["panels"] = [np.asarray(x)[: len(alleles)] for x in (io, ie, do, de)]
+        return jit_fn(allele, read, qual, alen, rlen, io, ie, do, de, x_pad, y_pad,
+                      interpret=True)
+
+    monkeypatch.setattr(jpp, "_pallas_forward_positional", capture)
+    out = jax_hmm.forward(alleles, reads, quals)
+    return out, seen["panels"]
+
+
+def _port_panels(hmm, alleles, reads, quals):
+    """The port's K4 panels of the same items (numpy)."""
+    args = phc.positional_args(alleles, reads, quals, hmm.gap, hmm.hop, "cpu")
+    return [x.numpy() for x in args[5:]]
+
+
+@pytest.mark.parametrize(
+    "gaps,hop,seed",
+    [(ONT_GAPS, HOP, 1), (DEFAULT_GAPS, HOP, 2), (ONT_GAPS, HOP_MIXED, 3),
+     (DEFAULT_GAPS, HopParams(), 4)],
+    ids=["ont_ln005", "default_ln005", "ont_mixed", "default_all_inf"],
+)
+def test_positional_gaps_match_jax_panels(monkeypatch, gaps, hop, seed):
+    """(i) ``positional_gaps`` bit for bit against the panels of the JAX
+    package's K4 route: runs, N, lowercase bytes, an empty read, padding."""
+    alleles, reads, quals = _homopolymer_items(16, seed)
+    jax_hmm = JaxPairHMM(gaps, hop_params=hop, mode="homopolymer")
+    hmm = BatchedPairHMM(gaps, hop, mode="homopolymer", device="cpu")
+    _, panels = _jax_k4_route(monkeypatch, jax_hmm, alleles, reads, quals)
+    got = _port_panels(hmm, alleles, reads, quals)
+    for name, g, ref in zip(("io", "ie", "do", "de"), got, panels):
+        assert g.dtype == ref.dtype == np.float32 and g.shape == ref.shape, name
+        assert g.tobytes() == ref.tobytes(), name
+    # the runs did take the hop rate somewhere (unless it is -inf)
+    if math.isfinite(hop.prob_ref_homopolymer[0]):
+        assert (got[2] == np.float32(np.exp(np.float32(LN_005)))).any()
+
+
+def _log_panels(alleles, reads):
+    """The per-position LOG gap arrays of tests/test_pallas_pairhmm.py:188-222."""
+    io, ie, do, de = [], [], [], []
+    for a, r in zip(alleles, reads):
+        io.append(np.float32(np.log(np.random.default_rng(1).uniform(1e-4, 2e-2, len(r)))))
+        ie.append(np.float32(np.log(np.random.default_rng(2).uniform(0.05, 0.5, len(r)))))
+        do.append(np.float32(np.log(np.random.default_rng(3).uniform(1e-4, 2e-2, len(a)))))
+        de.append(np.float32(np.log(np.random.default_rng(4).uniform(0.05, 0.5, len(a)))))
+    return io, ie, do, de
+
+
+def _plain_k4(alleles, reads, quals, io, ie, do, de):
+    """The port's plain K4 on LOG per-item arrays (linear panels as the JAX
+    package's ``_linpanel`` builds them)."""
+    (allele, read, qual, alen, rlen, _), n, Xp, Yp = phc.pack_exact_batch(
+        alleles, reads, quals, GAP)
+
+    def lin(rows, Np):
+        panel = np.zeros((n, Np), np.float32)
+        for b, row in enumerate(rows):
+            panel[b, : len(row)] = np.exp(np.asarray(row, np.float32)[:Np])
+        return panel
+
+    args = phc.to_device((allele, read, qual, alen, rlen, lin(io, Yp), lin(ie, Yp),
+                          lin(do, Xp), lin(de, Xp)), "cpu")
+    out = phc.positional_forward(*args).numpy().astype(np.float64)
+    return phc.mask_empty(out, reads)
+
+
+def _hp_wavefront(alleles, reads, quals, io, ie, do, de):
+    """JAX ``_forward_hp_impl``, full forward (band off), LOG panels."""
+    B = len(alleles)
+    X = -(-max(len(a) for a in alleles) // 32) * 32
+    Y = max(32, -(-max(len(r) for r in reads) // 32) * 32)
+    al = np.zeros((B, X), np.uint8)
+    rd = np.zeros((B, Y), np.uint8)
+    mis = np.full((B, Y), NEG_INF, np.float32)
+    alen = np.zeros(B, np.int32)
+    rlen = np.zeros(B, np.int32)
+    pio, pie = np.full((B, Y), NEG_INF, np.float32), np.full((B, Y), NEG_INF, np.float32)
+    pdo, pde = np.full((B, X), NEG_INF, np.float32), np.full((B, X), NEG_INF, np.float32)
+    for b, (a, r, q) in enumerate(zip(alleles, reads, quals)):
+        a = np.frombuffer(bytes(a), np.uint8) & 0xDF
+        al[b, : len(a)] = a
+        rd[b, : len(r)] = np.asarray(r, np.uint8) & 0xDF
+        mis[b, : len(r)] = -np.asarray(q, np.float64) * math.log(10) / 10
+        alen[b], rlen[b] = len(a), len(r)
+        pio[b, : len(r)], pie[b, : len(r)] = io[b], ie[b]
+        pdo[b, : len(a)], pde[b, : len(a)] = do[b], de[b]
+    out = _forward_hp_impl(
+        jnp.asarray(al), jnp.asarray(alen), jnp.asarray(rd), jnp.asarray(mis),
+        jnp.asarray(rlen), jnp.asarray(pio), jnp.asarray(pie), jnp.asarray(pdo),
+        jnp.asarray(pde), jnp.asarray(np.full(B, -1, np.int32)), X, Y,
+    )
+    return np.asarray(out, dtype=np.float64)
+
+
+def _k4_sets():
+    """(alleles, reads, quals, io, ie, do, de) with LOG per-position gaps:
+    the JAX package's own K4 test inputs, the 50-base deletion chain under
+    varying de, and homopolymer items with hop-rate panels."""
+    from test_pallas_pairhmm import _synth
+
+    out = {}
+    alleles, reads, quals = _synth(n=13, seed=7)
+    keep = [i for i in range(len(reads)) if len(reads[i]) > 0]
+    alleles, reads, quals = ([x[i] for i in keep] for x in (alleles, reads, quals))
+    out["pallas_test"] = (alleles, reads, quals, *_log_panels(alleles, reads))
+    alleles, reads, quals = pairhmm_edge_items()["long_deletion"]
+    rng = np.random.default_rng(8)
+    ins = [np.log(rng.uniform(1e-3, 1e-2, len(reads[0]))).astype(np.float32),
+           np.log(rng.uniform(0.1, 0.5, len(reads[0]))).astype(np.float32)]
+    dels = [np.log(rng.uniform(1e-3, 1e-2, len(alleles[0]))).astype(np.float32),
+            np.log(rng.uniform(0.3, 0.95, len(alleles[0]))).astype(np.float32)]
+    out["long_deletion_varying_de"] = (alleles, reads, quals, [ins[0]], [ins[1]],
+                                       [dels[0]], [dels[1]])
+    alleles, reads, quals = _homopolymer_items(15, 9)
+    alleles, reads, quals = alleles[:-1], reads[:-1], quals[:-1]  # no empty read
+    hmm = BatchedPairHMM(ONT_GAPS, HOP, mode="homopolymer", device="cpu")
+    lin = _port_panels(hmm, alleles, reads, quals)
+    logs = []
+    for panel, items in zip(lin, (reads, reads, alleles, alleles)):
+        with np.errstate(divide="ignore"):
+            logs.append([np.maximum(np.log(p[: len(x)]), NEG_INF) for p, x in zip(panel, items)])
+    out["homopolymer_hop"] = (alleles, reads, quals, *logs)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_k4_sets()))
+def test_plain_k4_matches_jax(name):
+    """(ii) plain K4 against the Pallas K4 in interpret mode, and (iii)
+    against the log-space positional wavefront ``_forward_hp_impl``."""
+    alleles, reads, quals, io, ie, do, de = _k4_sets()[name]
+    got = _plain_k4(alleles, reads, quals, io, ie, do, de)
+    pallas = jpp.pallas_positional_forward(alleles, reads, quals, io, ie, do, de,
+                                           interpret=True)
+    wave = _hp_wavefront(alleles, reads, quals, io, ie, do, de)
+    assert np.all(got > -1e29) and np.all(pallas > -1e29)
+    assert _rel(got, pallas) < TOL, _rel(got, pallas)
+    assert _rel(got, wave) < TOL, _rel(got, wave)
+    # the gaps matter: the constant-gap K3 gives another answer
+    if name == "long_deletion_varying_de":
+        k3 = phc.forward_items(alleles, reads, quals, GAP_ONT, "cpu", True)
+        assert abs(k3[0] - got[0]) > 0.1
 
 
 def test_denormals_explain_the_difference_from_xla():

@@ -116,5 +116,8 @@ def load():
             for fn in (lib.vlt_pairhmm_exact, lib.vlt_pairhmm_general):
                 fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
                 fn.restype = i
+            # K4: the [7] coef gives way to the four gap panels io, ie, do, de
+            lib.vlt_pairhmm_positional.argtypes = [p] * 10 + [i, i, i, p]
+            lib.vlt_pairhmm_positional.restype = i
             _lib = lib
         return _lib

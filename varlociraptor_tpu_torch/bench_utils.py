@@ -259,10 +259,99 @@ def _cigar(rp):
     return [(op, n) for op, n in ops]
 
 
+_HP_MIN, _HP_MAX = 5, 12  # planted homopolymer runs: lengths
+_HP_SPACING = 150  # about one planted run per this many bases
+_SLIP_RATE = 0.005  # per base of a run a read crosses: a +-1 length slip
+
+
+def _homopolymer_runs(seq, min_len=_HP_MIN):
+    """(starts, lengths) of the runs of one base of at least ``min_len``."""
+    brk = np.nonzero(seq[1:] != seq[:-1])[0] + 1
+    starts = np.concatenate([[0], brk])
+    lens = np.diff(np.concatenate([starts, [len(seq)]]))
+    keep = lens >= min_len
+    return starts[keep], lens[keep]
+
+
+def _write_runs(ref, starts, lens, rng):
+    """Write a run of one random base at each start (``lens`` bases), the
+    base unlike the bases just before and after the run; returns the bases."""
+    idx = np.zeros(256, np.int64)
+    idx[_ACGT] = np.arange(4)
+    left, right = idx[ref[starts - 1]], idx[ref[starts + lens]]
+    b = (left + 1 + rng.integers(0, 3, len(starts))) % 4  # != left
+    b = np.where(b == right, (b + 1) % 4, b)
+    b = np.where(b == left, (b + 1) % 4, b)  # then b + 2 != right either
+    off = np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens)
+    ref[np.repeat(starts, lens) + off] = np.repeat(_ACGT[b], lens)
+    return _ACGT[b]
+
+
+def _plant_homopolymers(ref, pos, role, rng):
+    """The homopolymer profile's reference: half of the germline, somatic and
+    decoy indel sites (roles 0-2) get a run of 5-12 bases just after their
+    anchor base, where the indel becomes a run-length change of 1-3 bases;
+    other runs of 5-12 bases are written about every 150 bases, at least 30
+    bases from any variant.  Edits ``ref`` in place; returns the in-run mask
+    over the variants and their length changes."""
+    n = len(pos)
+    in_run = np.zeros(n, dtype=bool)
+    for r in range(3):
+        sites = np.nonzero(role == r)[0]
+        in_run[rng.choice(sites, len(sites) // 2, replace=False)] = True
+    change = rng.integers(1, 4, n)
+    at = pos[in_run] + 1
+    _write_runs(ref, at, rng.integers(_HP_MIN, _HP_MAX + 1, len(at)), rng)
+    bg = np.arange(_HP_SPACING, len(ref) - _HP_SPACING, _HP_SPACING)
+    bg = bg + rng.integers(0, _HP_SPACING - _HP_MAX - 8, len(bg))
+    k = np.searchsorted(pos, bg)
+    prev = np.where(k > 0, bg - pos[np.maximum(k - 1, 0)], 1 << 30)
+    nxt = np.where(k < n, pos[np.minimum(k, n - 1)] - bg, 1 << 30)
+    bg = bg[(prev >= 30) & (nxt >= 30)]
+    _write_runs(ref, bg, rng.integers(_HP_MIN, _HP_MAX + 1, len(bg)), rng)
+    return in_run, change
+
+
+def _slip_reads(rows, starts, hseq, hmap, L, rng, seqs, cigars, ref_start, ref_end):
+    """PCR slips: every run of >= 5 bases that a read crosses whole (a base
+    of the read on each side) gains or loses one base, each equally likely,
+    with probability 0.005 x the run's length.  The read keeps L bases; the
+    I or D sits at the run's first base, where an aligner left-aligns it."""
+    rs, rl = _homopolymer_runs(hseq)
+    first = np.searchsorted(rs, starts + 1)
+    last = np.searchsorted(rs + rl, starts + L - 1, side="right")
+    n = np.maximum(last - first, 0)
+    read = np.repeat(np.arange(len(rows)), n)
+    run = np.repeat(first, n) + np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    hit = rng.random(len(run)) < _SLIP_RATE * rl[run]
+    ins = rng.random(len(run)) < 0.5
+    read, run, ins = read[hit], run[hit], ins[hit]
+    bounds = np.nonzero(np.diff(read))[0] + 1
+    for k, rk, ik in zip(np.split(read, bounds), np.split(run, bounds), np.split(ins, bounds)):
+        if not len(k):
+            continue
+        s0 = int(starts[k[0]])
+        span = L + int((~ik).sum())
+        if s0 + span > len(hseq):
+            continue
+        sq, rp = hseq[s0 : s0 + span].copy(), hmap[s0 : s0 + span].copy()
+        for r, is_ins in zip(rk[::-1].tolist(), ik[::-1].tolist()):  # right to left
+            off = int(rs[r]) - s0
+            if is_ins:
+                sq, rp = np.insert(sq, off, sq[off]), np.insert(rp, off, -1)
+            else:
+                sq, rp = np.delete(sq, off), np.delete(rp, off)
+        i = rows[k[0]]
+        seqs[i], rp = sq[:L], rp[:L]
+        cigars[i] = _cigar(rp)
+        ref_start[i], ref_end[i] = rp[rp >= 0][0], rp.max() + 1
+
+
 def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
-                      insert_mean, insert_sd, base_error):
+                      insert_mean, insert_sd, base_error, slip_rng=None):
     """Paired-end library over a diploid genome (each fragment samples one
-    haplotype), sorted and written with BamWriter + BAI."""
+    haplotype), sorted and written with BamWriter + BAI.  With ``slip_rng``,
+    reads carry homopolymer slips (:func:`_slip_reads`) drawn from it."""
     from varlociraptor_tpu.io.bam import BamRecord, BamWriter
 
     L = read_len
@@ -296,6 +385,8 @@ def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
             cigars[i] = _cigar(rp)
             ref_start[i] = rp[rp >= 0][0]
             ref_end[i] = rp.max() + 1
+        if slip_rng is not None:
+            _slip_reads(sel, s, hseq, hmap, L, slip_rng, seqs, cigars, ref_start, ref_end)
     n_err = rng.binomial(L, base_error, N)
     rows = np.repeat(np.arange(N), n_err)
     seqs[rows, rng.integers(0, L, len(rows))] = _ACGT[rng.integers(0, 4, len(rows))]
@@ -323,7 +414,7 @@ def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
 def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
                            read_len=100, insert_mean=350.0, insert_sd=50.0,
                            base_error=0.003, n_germline=1000, n_somatic=500,
-                           n_decoy=500, n_snv=0, chrom="chr1"):
+                           n_decoy=500, n_snv=0, chrom="chr1", homopolymer=False):
     """A tumor/normal preprocess world: FASTA, two indexed BAMs, candidates.
 
     One random contig of ``genome_len`` bases.  ``n_germline`` heterozygous
@@ -338,9 +429,20 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
     (position-sorted) lists every planted variant and ``n_decoy`` indels at
     sites that carry none.
 
+    ``homopolymer=True`` (off by default; with it off, the draws and the
+    files are those of the plain world): the error profile of a
+    PCR-amplified library.  Homopolymer runs of 5-12 bases of one random
+    base are written into the reference, about one per 150 bases; half of
+    the germline, somatic and decoy indels sit at the start of a run, as a
+    run-length change of 1-3 bases; and every run of >= 5 bases that a read
+    crosses whole slips by one base (an I or D in the CIGAR) with
+    probability 0.005 x its length.  These draws come from a second
+    generator seeded with (seed, 1).
+
     Returns {"fasta", "tumor", "normal", "candidates", "n_candidates",
     "reads": {sample: n}, "truth": {"germline", "somatic", "decoy", "snv":
-    0-based VCF positions}}."""
+    0-based VCF positions}}; the homopolymer world's truth also holds
+    "in_run", the positions of the indels inside runs."""
     from pathlib import Path
 
     rng = np.random.default_rng(seed)
@@ -360,8 +462,14 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
     is_del = rng.permutation(np.arange(n_total) % 2 == 0)
     length = np.where(rng.permutation(np.arange(n_total)) < n_total // 2, 1,
                       rng.integers(2, 11, n_total))
+    in_run, hrng = np.zeros(n_total, dtype=bool), None
+    if homopolymer:
+        hrng = np.random.default_rng([seed, 1])
+        in_run, change = _plant_homopolymers(ref, pos, role, hrng)
+        length = np.where(in_run, change, length)
     events, rows = {0: [], 1: [], 2: [], 3: []}, []
-    for p, r, d, ln in zip(pos.tolist(), role.tolist(), is_del.tolist(), length.tolist()):
+    for p, r, d, ln, hp in zip(pos.tolist(), role.tolist(), is_del.tolist(),
+                               length.tolist(), in_run.tolist()):
         if r == 3:
             alt = bytes([int(rng.choice(_ACGT[_ACGT != ref[p]]))])
             ev = (p, "snv", 1, alt)
@@ -371,6 +479,8 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
             rows.append((p, ref[p : p + 1 + ln].tobytes(), ref[p : p + 1].tobytes()))
         else:
             ins = _ACGT[rng.integers(0, 4, ln)].tobytes()
+            if hp:  # the run's own base: a longer run
+                ins = ref[p + 1 : p + 2].tobytes() * ln
             ev = (p, "ins", ln, ins)
             rows.append((p, ref[p : p + 1].tobytes(), ref[p : p + 1].tobytes() + ins))
         events[r].append(ev)
@@ -388,7 +498,7 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
     for sample in ("normal", "tumor"):
         reads[sample] = _simulate_library(
             out / f"{sample}.bam", chrom, genome_len, haps[sample], rng,
-            coverage, read_len, insert_mean, insert_sd, base_error,
+            coverage, read_len, insert_mean, insert_sd, base_error, slip_rng=hrng,
         )
     cand = out / "candidates.vcf"
     with open(cand, "w") as f:
@@ -399,6 +509,8 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
             f.write(f"{chrom}\t{p + 1}\t.\t{rb.decode()}\t{ab.decode()}\t.\t.\t.\n")
     names = ("germline", "somatic", "decoy", "snv")
     truth = {names[r]: pos[role == r] for r in range(4)}
+    if homopolymer:
+        truth["in_run"] = pos[in_run]
     return {"fasta": str(fasta), "tumor": str(out / "tumor.bam"),
             "normal": str(out / "normal.bam"), "candidates": str(cand),
             "n_candidates": n_total, "reads": reads, "truth": truth}

@@ -17,8 +17,10 @@ Differences from the JAX package's preprocess:
   verbatim copy;
 * ``device_chunk=0`` picks by device: 64 loci per pair-HMM call on the card,
   1 (per locus, the reference's sequential semantics) on the CPU;
-* host worker processes (``n_workers > 1``) and ``pairhmm_mode=
-  "homopolymer"`` are not ported and raise (ROADMAP A12 and A9).
+* ``pairhmm_mode="homopolymer"`` runs the positional-gap kernel K4 with the
+  alignment properties' hop params (K2 / K3 when the estimate found none);
+* host worker processes (``n_workers > 1``) are not ported and raise
+  (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -155,11 +157,6 @@ def preprocess(
         raise NotImplementedError(
             "preprocess with several host worker processes (--threads > 1) "
             "is not ported yet: ROADMAP A12"
-        )
-    if options.pairhmm_mode == "homopolymer":
-        raise NotImplementedError(
-            "pairhmm mode 'homopolymer' (positional gap kernel K4) is not "
-            "ported yet: ROADMAP A9"
         )
     reference = reference or FastaBuffer(
         reference_path, capacity=options.reference_buffer_size

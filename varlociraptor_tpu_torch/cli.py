@@ -15,8 +15,9 @@
 The flags follow ``varlociraptor_tpu/cli.py`` for these commands.  The
 device of the pair-HMM (preprocess) and of the posterior engine (call)
 defaults to ``cuda``; asking for it without a card is an error, never a
-silent fall back to the CPU.  ``preprocess --threads > 1`` and
-``--pairhmm-mode homopolymer`` are not ported and raise (ROADMAP A12, A9).
+silent fall back to the CPU.  ``preprocess --pairhmm-mode homopolymer``
+runs the positional-gap kernel K4; ``preprocess --threads > 1`` is not
+ported and raises (ROADMAP A12).
 """
 
 from __future__ import annotations

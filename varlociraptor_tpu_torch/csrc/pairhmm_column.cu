@@ -1,4 +1,4 @@
-// K2 and K3: the exact semiglobal pair-HMM forward as a column recurrence.
+// K2, K3 and K4: the exact semiglobal pair-HMM forward as a column recurrence.
 //
 // K2 (vlt_pairhmm_exact) replaces varlociraptor_tpu/ops/pallas_pairhmm.py:_kernel,
 // the zero-gap-extension model collapsed to one state and three terms:
@@ -10,15 +10,25 @@
 // (_general_body): three states M/I/D with constant finite extensions; the
 // within-column recurrence D(i) = t_md*M(i-1) + t_dd*D(i-1) is a prefix scan.
 //
-// Both: linear-space float32, each work item rescaled by 1e16 when its column
-// maximum falls below 1e-16 (its log scale kept aside), free start and end on
-// the allele axis, the read consumed in full.  The result is
+// K4 (vlt_pairhmm_positional) replaces pallas_pairhmm.py:_kernel_positional
+// (_general_body with per-position gaps): K3 with the insertion open / extend
+// of read base j (io_j, ie_j) and the deletion open / extend of allele row k
+// (do_k, de_k) in place of the constants, as the TPU kernel indexes them:
+// t_mm = max(1 - io_j - do_k, 1e-12), t_dm = 1 - de_k (times D(k-1) of the
+// previous column), t_im = 1 - ie_j, t_mi = io_j, t_ii = ie_j, and
+// D(k) = do_k*M(k-1) + de_k*D(k-1) within the column.
+//
+// All three: linear-space float32, each work item rescaled by 1e16 when its
+// column maximum falls below 1e-16 (its log scale kept aside), free start and
+// end on the allele axis, the read consumed in full.  The result is
 // log(sum of the last column) - scale, or -1e30 when that sum is 0.  The
 // caller masks empty reads (packed as one pad column) to -1e30.
 //
 // Inputs are the host's row-major uint8 panels: allele [B, Xp], read and
 // PHRED qual [B, Yp]; alen / rlen [B] int32 (1 <= rlen <= Yp); coef [4] or [7]
-// float32 on the device.  The uppercase fold and PHRED -> miscall happen here.
+// float32 on the device (K2, K3); io / ie [B, Yp] and do / de [B, Xp] LINEAR
+// float32 (K4, zero past each item's length).  The uppercase fold and PHRED ->
+// miscall happen here.
 //
 // What bounds it on an H100: the dependency chain of the column loop.  A
 // work item is ~X*Y cells of ~10 flops each, and its columns are sequential,
@@ -32,11 +42,17 @@
 // __shfl_up_sync at the lane boundary (shared memory at a warp boundary).
 // The read base and miscall of a column are broadcast from the lane that
 // loaded them (32 columns per coalesced load).  The column maximum is a warp
-// reduction; the sums of the last column are taken once, at j = rlen.  K3's D
-// scan runs sequentially inside a lane and as a Kogge-Stone scan of affine
-// carries over lanes (and over warps, in order), which is exact up to float
-// rounding, as the TPU kernel's log-shift scan is.  The column loop stops at
-// the item's own rlen, which gives what the TPU kernel's frozen output gives.
+// reduction; the sums of the last column are taken once, at j = rlen.  The D
+// scan of K3 and K4 runs sequentially inside a lane and as a Kogge-Stone scan
+// of affine carries over lanes (and over warps, in order), which is exact up
+// to float rounding, as the TPU kernel's log-shift scan is.  The carry
+// factors are products of the extension over the rows spanned (t_dd^n for
+// K3, products of de for K4); they do not change from column to column, so
+// each lane computes its factors once per item and each column scans only
+// the carried values.  K4 keeps its rows' do / de (and the next lane's
+// first) in registers and broadcasts io / ie with the read bases.  The
+// column loop stops at the item's own rlen, which gives what the TPU
+// kernel's frozen output gives.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,7 +73,8 @@ struct Scratch {
   float bnd[3][MAX_WARPS];   // lane 31's last values of each warp, previous column
   float mx[MAX_WARPS];       // per-warp column maxima
   float sum[2][MAX_WARPS];   // per-warp sums of the last column
-  float carry[MAX_WARPS];    // K3: per-warp D-scan totals
+  float carry[MAX_WARPS];    // K3, K4: per-warp D-scan totals of the column
+  float carry_a[MAX_WARPS];  // K3, K4: per-warp carry factors (set once)
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -136,14 +153,18 @@ __device__ __forceinline__ float emission(uint8_t a, bool valid, uint8_t rj,
   return rj == 'N' ? 0.25f : mj * (1.0f / 3.0f);
 }
 
-// Read base and miscall of column j (1-based), broadcast from the lane that
-// holds them; every 32 columns the warp loads the next 32 with one access.
+// Read base and miscall of column j (1-based), and with POS (K4) the
+// column's insertion open / extend, broadcast from the lane that holds them;
+// every 32 columns the warp loads the next 32 with one access per panel.
+template <bool POS>
 struct ReadCursor {
   const uint8_t* read;
   const uint8_t* qual;
+  const float* io;  // POS only
+  const float* ie;
   int Yp;
-  int base;
-  float mis;
+  int base = 0;
+  float mis = 0.0f, o = 0.0f, e = 0.0f;
 
   __device__ __forceinline__ void get(int j, int lane, uint8_t& rj, float& mj) {
     const int idx = j - 1;
@@ -151,9 +172,19 @@ struct ReadCursor {
       const int c = idx + lane;
       base = c < Yp ? (read[c] & 0xDF) : 0;
       mis = expf((c < Yp ? (float)qual[c] : 0.0f) * NEG_LN10_10);
+      if (POS) {
+        o = c < Yp ? io[c] : 0.0f;
+        e = c < Yp ? ie[c] : 0.0f;
+      }
     }
     rj = (uint8_t)__shfl_sync(FULL, base, idx & 31);
     mj = __shfl_sync(FULL, mis, idx & 31);
+  }
+
+  // io_j, ie_j of the column last passed to get()
+  __device__ __forceinline__ void gaps(int j, float& oj, float& ej) const {
+    oj = __shfl_sync(FULL, o, (j - 1) & 31);
+    ej = __shfl_sync(FULL, e, (j - 1) & 31);
   }
 };
 
@@ -212,7 +243,7 @@ pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
   for (int r = 0; r < R; ++r) p1[r] = p2[r] = 0.0f;
   publish<MULTI>(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);
 
-  ReadCursor rc{read + item * Yp, qual + item * Yp, Yp, 0, 0.0f};
+  ReadCursor<false> rc{read + item * Yp, qual + item * Yp, nullptr, nullptr, Yp};
   float scale = 0.0f, mprev = 0.0f, m1 = 0.0f;
   for (int j = 1; j <= rlen; ++j) {
     uint8_t rj;
@@ -272,45 +303,105 @@ pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
 }
 
 // ---------------------------------------------------------------------------
-// K3: constant finite extensions, three states
+// K3: constant finite extensions, three states; K4 (POS): positional gaps
 // ---------------------------------------------------------------------------
 
-template <int R, bool MULTI>
+// K4's gap panels (LINEAR): io / ie [B, Yp] per read base, do / de [B, Xp]
+// per allele row; all null for K2 and K3.
+struct GapPanels {
+  const float* io;
+  const float* ie;
+  const float* dop;
+  const float* dep;
+};
+
+template <int R, bool MULTI, bool POS>
 __global__ void __launch_bounds__(MULTI ? 1024 : 32 * ITEMS_PER_BLOCK)
 pairhmm_general_kernel(const uint8_t* __restrict__ allele,
                        const uint8_t* __restrict__ read,
                        const uint8_t* __restrict__ qual,
                        const int* __restrict__ alen_p,
                        const int* __restrict__ rlen_p,
-                       const float* __restrict__ coef, float* __restrict__ out,
-                       int B, int Xp, int Yp, int W) {
+                       const float* __restrict__ coef, const GapPanels gp,
+                       float* __restrict__ out, int B, int Xp, int Yp, int W) {
   __shared__ Scratch s;
   const ItemIndex ix = item_index<R, MULTI>();
   if (ix.item >= B) return;
   const long long item = ix.item;
-  const float t_mm = coef[0], t_dm = coef[1], t_im = coef[2], t_mi = coef[3];
-  const float t_md = coef[4], t_ii = coef[5], t_dd = coef[6];
+  // K3's constants.  K4 sets t_im, t_mi, t_ii per column from io_j / ie_j,
+  // and t_mm, t_dm and the scan's t_md, t_dd per row from do / de.
+  float t_mm = 0.0f, t_dm = 0.0f, t_im = 0.0f, t_mi = 0.0f;
+  float t_md = 0.0f, t_ii = 0.0f, t_dd = 0.0f;
+  if (!POS) {
+    t_mm = coef[0], t_dm = coef[1], t_im = coef[2], t_mi = coef[3];
+    t_md = coef[4], t_ii = coef[5], t_dd = coef[6];
+  }
   const int alen = alen_p[item];
   const int rlen = min(max(rlen_p[item], 1), Yp);
-  // carry factors of the D scan: across one lane (R rows), across one warp,
-  // and from lane 0 of this warp to this lane
-  const float a_lane = powf(t_dd, (float)R);
-  const float a_warp = powf(t_dd, (float)(32 * R));
-  const float a_mine = powf(a_lane, (float)ix.lane);
+
+  // K4: deletion open / extend of rows p0 .. p0+R.  Row p0+R is the next
+  // lane's first: this lane's E(p0+R-1) = D(p0+R) closes with it.
+  float dop[R + 1], dex[R + 1];  // unused (and dropped) for K3
+  if (POS) {
+#pragma unroll
+    for (int r = 0; r <= R; ++r) {
+      const int p = ix.p0 + r;
+      dop[r] = p < Xp ? gp.dop[item * Xp + p] : 0.0f;
+      dex[r] = p < Xp ? gp.dep[item * Xp + p] : 0.0f;
+    }
+  }
+  // Carry factors of the D scan, the same in every column: ks[k], the factor
+  // of this lane's carry at Kogge-Stone step k (the product over the 2^k
+  // lanes it spans then); a_left, from the warp's first row to this lane's
+  // first; s.carry_a[w], across warp w.  K3: powers of t_dd^R.  K4: products
+  // of de, scanned once.
+  float ks[5], a_left;
+  if (POS) {
+    float a = 1.0f;
+#pragma unroll
+    for (int r = 1; r <= R; ++r) a *= dex[r];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      ks[k] = a;
+      const float v = __shfl_up_sync(FULL, a, 1 << k);
+      if (ix.lane >= (1 << k)) a *= v;
+    }
+    a_left = __shfl_up_sync(FULL, a, 1);
+    if (MULTI && ix.lane == 31) s.carry_a[ix.w] = a;
+  } else {
+    const float a_lane = powf(t_dd, (float)R);
+    float a = a_lane;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      ks[k] = a;
+      a *= a;
+    }
+    a_left = powf(a_lane, (float)ix.lane);
+    if (MULTI && ix.lane == 31) s.carry_a[ix.w] = powf(t_dd, (float)(32 * R));
+  }
 
   uint8_t al[R];
   load_allele<R>(allele + item * Xp, Xp, ix.p0, al);
   float m[R], ip[R], d[R];  // M, I, D of the previous column
 #pragma unroll
   for (int r = 0; r < R; ++r) m[r] = ip[r] = d[r] = 0.0f;
-  publish<MULTI>(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);
+  publish<MULTI>(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);  // also publishes carry_a
 
-  ReadCursor rc{read + item * Yp, qual + item * Yp, Yp, 0, 0.0f};
+  ReadCursor<POS> rc{read + item * Yp, qual + item * Yp,
+                     POS ? gp.io + item * Yp : nullptr,
+                     POS ? gp.ie + item * Yp : nullptr, Yp};
   float scale = 0.0f, i0 = 0.0f;  // i0: I before allele position 1
   for (int j = 1; j <= rlen; ++j) {
     uint8_t rj;
-    float mj;
+    float mj, io_j = 0.0f;
     rc.get(j, ix.lane, rj, mj);
+    if (POS) {
+      float ie_j;
+      rc.gaps(j, io_j, ie_j);
+      t_im = 1.0f - ie_j;
+      t_mi = io_j;
+      t_ii = ie_j;
+    }
     const float um = from_left<MULTI>(m[R - 1], s.bnd[0], ix.w, ix.lane, 0.0f);
     const float ud = from_left<MULTI>(d[R - 1], s.bnd[1], ix.w, ix.lane, 0.0f);
     const float ui = from_left<MULTI>(ip[R - 1], s.bnd[2], ix.w, ix.lane, i0);
@@ -325,8 +416,10 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
       const float ds = r >= 1 ? d[r1] : ud;
       const float is = r >= 1 ? ip[r1] : ui;
       const bool valid = ix.p0 + r < alen;
+      const float tmm = POS ? fmaxf(1.0f - io_j - dop[r], 1e-12f) : t_mm;
+      const float tdm = POS ? 1.0f - dex[r] : t_dm;
       const float mc = emission(al[r], valid, rj, mj) *
-                       (t_mm * ms + t_dm * ds + t_im * is + startm);
+                       (tmm * ms + tdm * ds + t_im * is + startm);
       const float ic = mj * (t_mi * m[r] + t_ii * ip[r]) + (valid ? start_i : 0.0f);
       m[r] = mc;
       ip[r] = ic;
@@ -344,35 +437,34 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
       scale += LOG_RESCALE;
     }
 
-    // D of this column.  E(k) = D(k+1) = t_md*M(k) + t_dd*E(k-1) needs no
-    // neighbour's M: scan E inside the lane from a zero carry, then carry in
-    // E(p0-1) from the lanes (and warps) to the left.
+    // D of this column.  E(k) = D(k+1) = t_md(k+1)*M(k) + t_dd(k+1)*E(k-1)
+    // needs no neighbour's M: scan E inside the lane from a zero carry, then
+    // carry in E(p0-1) from the lanes (and warps) to the left.
     float e_loc[R];
-    e_loc[0] = t_md * m[0];
+    e_loc[0] = (POS ? dop[1] : t_md) * m[0];
 #pragma unroll
-    for (int r = 1; r < R; ++r) e_loc[r] = t_md * m[r] + t_dd * e_loc[r - 1];
+    for (int r = 1; r < R; ++r)
+      e_loc[r] = (POS ? dop[r + 1] : t_md) * m[r] + (POS ? dex[r + 1] : t_dd) * e_loc[r - 1];
     float incl = e_loc[R - 1];  // inclusive over lanes, zero carry into lane 0
-    float a_s = a_lane;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float v = __shfl_up_sync(FULL, incl, o);
-      if (ix.lane >= o) incl += a_s * v;
-      a_s *= a_s;
+    for (int k = 0; k < 5; ++k) {
+      const float v = __shfl_up_sync(FULL, incl, 1 << k);
+      if (ix.lane >= (1 << k)) incl += ks[k] * v;
     }
     float c_warp = 0.0f;  // E at the last row of the previous warp
     if (MULTI) {
       if (ix.lane == 31) s.carry[ix.w] = incl;
       __syncthreads();
-      for (int k = 0; k < ix.w; ++k) c_warp = s.carry[k] + a_warp * c_warp;
+      for (int k = 0; k < ix.w; ++k) c_warp = s.carry[k] + s.carry_a[k] * c_warp;
     }
     const float left = __shfl_up_sync(FULL, incl, 1);
-    const float c_in = ix.lane == 0 ? c_warp : left + a_mine * c_warp;  // E(p0-1)
-    float t_pow = t_dd;
+    const float c_in = ix.lane == 0 ? c_warp : left + a_left * c_warp;  // E(p0-1)
+    float t_pow = 1.0f;  // the extension's product over rows p0+1 .. p0+r
     d[0] = c_in;
 #pragma unroll
     for (int r = 1; r < R; ++r) {
+      t_pow *= POS ? dex[r] : t_dd;
       d[r] = e_loc[r - 1] + t_pow * c_in;
-      t_pow *= t_dd;
     }
 
     if (j == rlen) {
@@ -400,39 +492,42 @@ int pick_r(int per_lane) {
   return r;
 }
 
-template <bool GENERAL, int R, bool MULTI>
+enum Kind { EXACT, GENERAL, POSITIONAL };
+
+template <Kind K, int R, bool MULTI>
 void launch_r(dim3 grid, dim3 block, cudaStream_t st, const uint8_t* allele,
               const uint8_t* read, const uint8_t* qual, const int* alen,
-              const int* rlen, const float* coef, float* out, int B, int Xp,
-              int Yp, int W) {
-  if (GENERAL)
-    pairhmm_general_kernel<R, MULTI><<<grid, block, 0, st>>>(
-        allele, read, qual, alen, rlen, coef, out, B, Xp, Yp, W);
-  else
+              const int* rlen, const float* coef, const GapPanels& gp,
+              float* out, int B, int Xp, int Yp, int W) {
+  if (K == EXACT)
     pairhmm_exact_kernel<R, MULTI><<<grid, block, 0, st>>>(
         allele, read, qual, alen, rlen, coef, out, B, Xp, Yp, W);
+  else
+    pairhmm_general_kernel<R, MULTI, K == POSITIONAL><<<grid, block, 0, st>>>(
+        allele, read, qual, alen, rlen, coef, gp, out, B, Xp, Yp, W);
 }
 
-template <bool GENERAL>
+template <Kind K>
 int launch(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
-           const int* alen, const int* rlen, const float* coef, float* out,
-           int B, int Xp, int Yp, void* stream) {
+           const int* alen, const int* rlen, const float* coef,
+           const GapPanels& gp, float* out, int B, int Xp, int Yp,
+           void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (Xp <= 0 || Yp <= 0 || Xp > MAX_WARPS * 32 * 32)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (Xp > 32 * 32) {  // W warps of 32 rows per lane, one block per item
     const int W = (Xp + 32 * 32 - 1) / (32 * 32);
-    launch_r<GENERAL, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual,
-                                alen, rlen, coef, out, B, Xp, Yp, W);
+    launch_r<K, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual, alen,
+                          rlen, coef, gp, out, B, Xp, Yp, W);
     return (int)cudaGetLastError();
   }
   const dim3 grid((B + ITEMS_PER_BLOCK - 1) / ITEMS_PER_BLOCK);
   const dim3 block(32 * ITEMS_PER_BLOCK);
 #define VLT_CASE(r)                                                          \
   case r:                                                                    \
-    launch_r<GENERAL, r, false>(grid, block, st, allele, read, qual, alen,   \
-                                rlen, coef, out, B, Xp, Yp, 1);              \
+    launch_r<K, r, false>(grid, block, st, allele, read, qual, alen, rlen,   \
+                          coef, gp, out, B, Xp, Yp, 1);                      \
     break;
   switch (pick_r((Xp + 31) / 32)) {
     VLT_CASE(2) VLT_CASE(4) VLT_CASE(8) VLT_CASE(16) VLT_CASE(32)
@@ -448,13 +543,14 @@ int launch(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
 // cudaGetLastError() (0 = launched).  Device pointers: allele [B, Xp], read
 // and qual [B, Yp] uint8 row-major; alen, rlen [B] int32; coef [4] (K2:
 // t_mm, t_dm*t_md, t_im*t_mi, t_mi) or [7] (K3: t_mm, t_dm, t_im, t_mi, t_md,
-// t_ii, t_dd) float32; out [B] float32.
+// t_ii, t_dd) float32; K4: io, ie [B, Yp] and do, de [B, Xp] float32
+// LINEAR; out [B] float32.
 extern "C" int vlt_pairhmm_exact(const uint8_t* allele, const uint8_t* read,
                                  const uint8_t* qual, const int* alen,
                                  const int* rlen, const float* coef, float* out,
                                  int B, int Xp, int Yp, void* stream) {
-  return launch<false>(allele, read, qual, alen, rlen, coef, out, B, Xp, Yp,
-                       stream);
+  return launch<EXACT>(allele, read, qual, alen, rlen, coef, GapPanels{}, out,
+                       B, Xp, Yp, stream);
 }
 
 extern "C" int vlt_pairhmm_general(const uint8_t* allele, const uint8_t* read,
@@ -462,6 +558,18 @@ extern "C" int vlt_pairhmm_general(const uint8_t* allele, const uint8_t* read,
                                    const int* rlen, const float* coef,
                                    float* out, int B, int Xp, int Yp,
                                    void* stream) {
-  return launch<true>(allele, read, qual, alen, rlen, coef, out, B, Xp, Yp,
-                      stream);
+  return launch<GENERAL>(allele, read, qual, alen, rlen, coef, GapPanels{},
+                         out, B, Xp, Yp, stream);
+}
+
+extern "C" int vlt_pairhmm_positional(const uint8_t* allele,
+                                      const uint8_t* read, const uint8_t* qual,
+                                      const int* alen, const int* rlen,
+                                      const float* io, const float* ie,
+                                      const float* dop, const float* dep,
+                                      float* out, int B, int Xp, int Yp,
+                                      void* stream) {
+  return launch<POSITIONAL>(allele, read, qual, alen, rlen, nullptr,
+                            GapPanels{io, ie, dop, dep}, out, B, Xp, Yp,
+                            stream);
 }

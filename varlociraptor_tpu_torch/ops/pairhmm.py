@@ -15,7 +15,11 @@ device through the column kernels of :mod:`.pairhmm_column`:
 * zero extension probabilities (the default ``GapParams``): K2;
 * any finite extension (e.g. the MLE rates ``estimate()`` gives on real
   data): K3;
-* ``mode="homopolymer"`` (positional gaps, K4) is not ported (ROADMAP A9).
+* ``mode="homopolymer"`` with hop params, whatever the gap model: K4, with
+  per-position gaps (the hop rates inside homopolymer runs, built on the
+  device by :func:`.pairhmm_column.positional_gaps`); without hop params
+  (``estimate()`` found too few homopolymer indels) the mode falls through
+  to K2 / K3, as in the JAX package.
 
 Like the JAX package's kernel path, it ignores the ``max_dists`` band: the
 band only prunes probability mass that the full forward dominates.
@@ -35,9 +39,9 @@ NEG_INF = -1.0e30  # finite -inf proxy of the log gap params (f32-safe)
 class BatchedPairHMM:
     """Pair-HMM forward over batches of (allele window, read window) items.
 
-    mode: "exact" (full forward) or "fast" (the realigner scores the
-    edit-distance path on the host and reads only ``.gap``); "homopolymer"
-    is accepted here but ``forward`` raises (ROADMAP A9).  ``device``: where
+    mode: "exact" (full forward), "fast" (the realigner scores the
+    edit-distance path on the host and reads only ``.gap``) or "homopolymer"
+    (positional gaps from ``hop_params``).  ``device``: where
     the forwards run ("cuda", "cpu" or a ``torch.device``); without one,
     ``forward`` raises: the pair-HMM never picks a device on its own."""
 
@@ -76,17 +80,13 @@ class BatchedPairHMM:
             raise ValueError("alleles, reads and quals differ in length")
         if max_dists is not None and len(max_dists) != n_req:
             raise ValueError("max_dists differs in length from alleles")
-        if self.mode == "homopolymer":
-            raise NotImplementedError(
-                "pairhmm mode 'homopolymer' (positional gap kernel K4) is not "
-                "ported yet: ROADMAP A9"
-            )
         if self.device is None:
             raise RuntimeError(
                 "BatchedPairHMM has no device: pass device='cuda' or 'cpu'"
             )
         # zero extension in both gap states: the collapsed one-state K2
         zero_ext = self.gap[2] <= NEG_INF / 2 and self.gap[3] <= NEG_INF / 2
+        hop = self.hop if self.mode == "homopolymer" else None
         return forward_items(
-            alleles, reads, quals, self.gap, self.device, general=not zero_ext
+            alleles, reads, quals, self.gap, self.device, general=not zero_ext, hop=hop
         )

@@ -1,4 +1,4 @@
-"""K2 and K3: the exact semiglobal pair-HMM forward as a column recurrence.
+"""K2, K3 and K4: the exact semiglobal pair-HMM forward as a column recurrence.
 
 Counterpart of ``varlociraptor_tpu/ops/pallas_pairhmm.py``.  The kernels are
 ``csrc/pairhmm_column.cu``; each has a plain torch version here that computes
@@ -15,7 +15,16 @@ K3 (``general_forward``): constant finite extensions, three states M/I/D.
 Within a column D(i) = t_md*M(i-1) + t_dd*D(i-1) is a first-order linear
 recurrence over i (a prefix scan).
 
-Both work in linear-space float32.  A work item whose column maximum falls
+K4 (``positional_forward``): K3 with per-position gap probabilities, the
+homopolymer mode.  The insertion open / extend of read base j (io_j, ie_j)
+and the deletion open / extend of allele row k (do_k, de_k) replace the
+constants, indexed as ``pallas_pairhmm.py:_general_body`` indexes them:
+t_mm = max(1 - io_j - do_k, 1e-12), t_dm = 1 - de_k (unclamped, times
+D(k-1) of the previous column), t_im = 1 - ie_j, t_mi = io_j, t_ii = ie_j,
+and D(k) = do_k*M(k-1) + de_k*D(k-1).  :func:`positional_gaps` builds the
+four LINEAR panels on the device from the packed bytes.
+
+All three work in linear-space float32.  A work item whose column maximum falls
 below 1e-16 is multiplied by 1e16 (its log scale is kept aside), start and
 end are free on the allele axis, and the read is consumed in full.  An empty
 read returns -1e30.
@@ -23,7 +32,8 @@ read returns -1e30.
 Inputs are row-major uint8 panels as the host packs them
 (:func:`pack_exact_batch`): allele [B, Xp], read [B, Yp], qual [B, Yp]
 (PHRED), alen / rlen [B] int32 (rlen clamped to >= 1), and the coefficient
-vector (:func:`exact_coef`, :func:`general_coef`).  The uppercase fold and
+vector (:func:`exact_coef`, :func:`general_coef`) or, for K4, the gap
+panels io / ie [B, Yp] and do / de [B, Xp] float32.  The uppercase fold and
 PHRED -> miscall happen on the tensor's device.  A CPU tensor goes to the
 plain version; a CUDA tensor goes to the kernel, or the call raises.
 """
@@ -115,6 +125,55 @@ def pack_exact_batch(alleles, reads, quals, gap):
     return (allele, read, qual, alen, rlen, exact_coef(gap)), n, Xp, Yp
 
 
+_ACGT = b"ACGT"  # the hop params' base order
+
+
+def _gap_lut(base, hop):
+    """[6] f32 LINEAR gap probabilities by class: 0 (padding), the base rate,
+    and one per base A, C, G, T inside a homopolymer run: the larger of the
+    base rate and the base's hop rate (the base rate where the hop rate is
+    not finite).  The maxima are float32 and the exponentials numpy's float32
+    ``exp``, as ``pallas_pairhmm.pallas_positional_forward``'s ``_linpanel``
+    takes them, so the panels are bit-identical to the TPU route's."""
+    b = np.float32(base)
+    logs = np.array(
+        [b] + [np.maximum(b, np.float32(h)) if math.isfinite(h) else b for h in hop],
+        dtype=np.float32,
+    )
+    lut = np.zeros(6, dtype=np.float32)
+    with np.errstate(over="ignore"):
+        lut[1:] = np.exp(logs)
+    return lut
+
+
+def positional_gaps(seqs, lens, base_open, base_ext, hop_open, hop_ext):
+    """Per-position LINEAR gap open / extend panels of packed sequences, on
+    ``seqs``' device.
+
+    seqs: [B, N] uint8 (a packed read or allele panel, raw bytes); lens: [B]
+    int32 item lengths; base_open / base_ext: LOG base rates; hop_open /
+    hop_ext: LOG rates per base (A, C, G, T).  A position whose byte is an
+    uppercase A/C/G/T equal to the byte before it (a homopolymer run's
+    continuation) takes that base's rate, any other position inside the item
+    the base rate, and the padding 0.  This is
+    ``varlociraptor_tpu/ops/pairhmm.py:BatchedPairHMM._positional_gaps`` on
+    the raw bytes followed by ``_linpanel``, as the TPU route computes them,
+    without a loop over items.  Returns (open, ext), each [B, N] float32."""
+    B, N = seqs.shape
+    dev = seqs.device
+    same = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    same[:, 1:] = seqs[:, 1:] == seqs[:, :-1]
+    cls = torch.ones((B, N), dtype=torch.int64, device=dev)
+    for k, base in enumerate(_ACGT):
+        cls = torch.where(same & (seqs == base), k + 2, cls)
+    inside = torch.arange(N, device=dev)[None, :] < lens.to(dev)[:, None]
+    cls = torch.where(inside, cls, 0)
+    lut = torch.from_numpy(
+        np.stack([_gap_lut(base_open, hop_open), _gap_lut(base_ext, hop_ext)])
+    ).to(dev)
+    return lut[0][cls], lut[1][cls]
+
+
 def mask_empty(res, reads):
     """Set the result of every empty read to -1e30.  The pack clamps an empty
     read to one column of pad (quality 0, miscall 1), which would otherwise
@@ -200,13 +259,21 @@ def exact_forward_reference(allele, read, qual, alen, rlen, coef):
     return out[:, 0]
 
 
-def general_forward_reference(allele, read, qual, alen, rlen, coef):
-    """Plain torch K3: [B] f32 log forward probabilities (see module doc).
-    The within-column D recurrence is a log-shift (Kogge-Stone) scan."""
+def _three_state_reference(allele, read, qual, alen, rlen, coef=None, gaps=None):
+    """The column recurrence of ``pallas_pairhmm.py:_general_body``: K3 with
+    the [7] constants ``coef``, or K4 with the LINEAR panels ``gaps`` =
+    (io, ie, do, de).  The within-column D recurrence is a log-shift
+    (Kogge-Stone) scan, with the varying extension carried through it as a
+    running product for K4."""
     B, Xp = allele.shape
     dev = allele.device
     a, rd, mis = _prepare(allele, read, qual)
-    t_mm, t_dm, t_im, t_mi, t_md, t_ii, t_dd = (coef[k] for k in range(7))
+    if gaps is None:
+        t_mm, t_dm, t_im, t_mi, t_md, t_ii, t_dd = (coef[k] for k in range(7))
+    else:
+        io, ie, do, de = gaps
+        t_md, t_dd = do, de
+        t_dm = 1.0 - de
     valid = torch.arange(Xp, device=dev)[None, :] < alen[:, None]
     validf = valid.to(torch.float32)
     rlen_ = rlen[:, None]
@@ -222,6 +289,13 @@ def general_forward_reference(allele, read, qual, alen, rlen, coef):
         rj = rd[:, j - 1 : j]
         mj = mis[:, j - 1 : j]
         e_m = _emission(a, rj, mj, valid)
+        if gaps is not None:
+            io_j = io[:, j - 1 : j]
+            ie_j = ie[:, j - 1 : j]
+            t_mm = torch.clamp(1.0 - io_j - do, min=1e-12)
+            t_im = 1.0 - ie_j
+            t_mi = io_j
+            t_ii = ie_j
         startm = torch.exp(-scale) if j == 1 else zero
         ihead = torch.cat([i0prev, iprev[:, : Xp - 1]], dim=1)
         mcol = e_m * (t_mm * _shift(mprev, 1) + t_dm * _shift(dprev, 1) + t_im * ihead + startm)
@@ -241,7 +315,7 @@ def general_forward_reference(allele, read, qual, alen, rlen, coef):
         s, fac = 1, t_dd
         while s < Xp:
             d = d + fac * _shift(d, s)
-            fac = fac * fac
+            fac = fac * fac if gaps is None else fac * _shift(fac, s)
             s *= 2
         fin = mcol.sum(dim=1, keepdim=True) + icol.sum(dim=1, keepdim=True) + i0col
         out = torch.where(rlen_ == j, _finish(fin, scale), out)
@@ -249,15 +323,34 @@ def general_forward_reference(allele, read, qual, alen, rlen, coef):
     return out[:, 0]
 
 
+def general_forward_reference(allele, read, qual, alen, rlen, coef):
+    """Plain torch K3: [B] f32 log forward probabilities (see module doc)."""
+    return _three_state_reference(allele, read, qual, alen, rlen, coef=coef)
+
+
+def positional_forward_reference(allele, read, qual, alen, rlen, io, ie, do, de):
+    """Plain torch K4: [B] f32 log forward probabilities with the LINEAR
+    per-position gap panels io / ie [B, Yp] and do / de [B, Xp] (see module
+    doc)."""
+    return _three_state_reference(allele, read, qual, alen, rlen, gaps=(io, ie, do, de))
+
+
 # ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
 
-def _check(allele, read, qual, alen, rlen, coef, n_coef, name):
-    for nm, t, dt in (("allele", allele, torch.uint8), ("read", read, torch.uint8),
-                      ("qual", qual, torch.uint8), ("alen", alen, torch.int32),
-                      ("rlen", rlen, torch.int32), ("coef", coef, torch.float32)):
+def _check(name, allele, read, qual, alen, rlen, coef=None, n_coef=None, gaps=None):
+    """Raise on what the kernels do not take: dtypes, contiguity, devices,
+    shapes; ``coef`` [n_coef] for K2 / K3, ``gaps`` (io, ie, do, de) for K4."""
+    specs = [("allele", allele, torch.uint8), ("read", read, torch.uint8),
+             ("qual", qual, torch.uint8), ("alen", alen, torch.int32),
+             ("rlen", rlen, torch.int32)]
+    if coef is not None:
+        specs.append(("coef", coef, torch.float32))
+    if gaps is not None:
+        specs += [(nm, t, torch.float32) for nm, t in zip(("io", "ie", "do", "de"), gaps)]
+    for nm, t, dt in specs:
         if t.dtype != dt:
             raise TypeError(f"{name}: {nm} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
@@ -272,8 +365,14 @@ def _check(allele, read, qual, alen, rlen, coef, n_coef, name):
     B = allele.shape[0]
     if read.shape[0] != B or alen.shape != (B,) or rlen.shape != (B,):
         raise ValueError(f"{name}: batch sizes differ")
-    if coef.shape != (n_coef,):
+    if coef is not None and coef.shape != (n_coef,):
         raise ValueError(f"{name}: coef must be [{n_coef}], got {tuple(coef.shape)}")
+    if gaps is not None:
+        for nm, t, like in zip(("io", "ie", "do", "de"), gaps, (read, read, allele, allele)):
+            if t.shape != like.shape:
+                raise ValueError(
+                    f"{name}: {nm} must be {tuple(like.shape)}, got {tuple(t.shape)}"
+                )
     if allele.shape[1] > MAX_XP or read.shape[1] >= 2**31 or B >= 2**31:
         raise ValueError(
             f"{name}: allele panel width {allele.shape[1]} exceeds the kernel's "
@@ -281,7 +380,9 @@ def _check(allele, read, qual, alen, rlen, coef, n_coef, name):
         )
 
 
-def _launch(fn_name, allele, read, qual, alen, rlen, coef):
+def _launch(fn_name, allele, read, *tensors):
+    """Launch ``fn_name`` of the kernel library on the current stream with
+    the device pointers of (allele, read, *tensors, out) and B, Xp, Yp."""
     from .._build import load
 
     lib = load()
@@ -290,12 +391,10 @@ def _launch(fn_name, allele, read, qual, alen, rlen, coef):
     out = torch.empty(B, dtype=torch.float32, device=allele.device)
     if B == 0:
         return out
+    ptrs = [t.data_ptr() for t in (allele, read, *tensors, out)]
     with torch.cuda.device(allele.device):
         stream = torch.cuda.current_stream(allele.device).cuda_stream
-        err = getattr(lib, fn_name)(
-            allele.data_ptr(), read.data_ptr(), qual.data_ptr(), alen.data_ptr(),
-            rlen.data_ptr(), coef.data_ptr(), out.data_ptr(), B, Xp, Yp, stream,
-        )
+        err = getattr(lib, fn_name)(*ptrs, B, Xp, Yp, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
     return out
@@ -305,7 +404,7 @@ def exact_forward(allele, read, qual, alen, rlen, coef):
     """K2: [B] f32 log forward probabilities, zero-extension model.  CPU
     tensors: the plain version.  CUDA tensors: the kernel (counted in
     ``exact_forward.launches``)."""
-    _check(allele, read, qual, alen, rlen, coef, 4, "exact_forward")
+    _check("exact_forward", allele, read, qual, alen, rlen, coef, 4)
     if allele.device.type == "cpu":
         return exact_forward_reference(allele, read, qual, alen, rlen, coef)
     if allele.device.type != "cuda":
@@ -322,7 +421,7 @@ def general_forward(allele, read, qual, alen, rlen, coef):
     """K3: [B] f32 log forward probabilities, constant finite extensions.
     CPU tensors: the plain version.  CUDA tensors: the kernel (counted in
     ``general_forward.launches``)."""
-    _check(allele, read, qual, alen, rlen, coef, 7, "general_forward")
+    _check("general_forward", allele, read, qual, alen, rlen, coef, 7)
     if allele.device.type == "cpu":
         return general_forward_reference(allele, read, qual, alen, rlen, coef)
     if allele.device.type != "cuda":
@@ -335,22 +434,64 @@ def general_forward(allele, read, qual, alen, rlen, coef):
 general_forward.launches = 0
 
 
+def positional_forward(allele, read, qual, alen, rlen, io, ie, do, de):
+    """K4: [B] f32 log forward probabilities with per-position gaps (the
+    LINEAR panels of :func:`positional_gaps`).  CPU tensors: the plain
+    version.  CUDA tensors: the kernel (counted in
+    ``positional_forward.launches``)."""
+    gaps = (io, ie, do, de)
+    _check("positional_forward", allele, read, qual, alen, rlen, gaps=gaps)
+    if allele.device.type == "cpu":
+        return positional_forward_reference(allele, read, qual, alen, rlen, *gaps)
+    if allele.device.type != "cuda":
+        raise ValueError(f"positional_forward: unsupported device {allele.device}")
+    out = _launch("vlt_pairhmm_positional", allele, read, qual, alen, rlen, *gaps)
+    positional_forward.launches += 1
+    return out
+
+
+positional_forward.launches = 0
+
+
 def to_device(args, device):
     """Host panels (numpy) -> contiguous tensors on ``device``."""
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in args)
 
 
-def forward_items(alleles, reads, quals, gap, device, general):
-    """Batched forward log-probs of ragged work items on ``device``:
-    pack on the host, K2 (``general=False``) or K3 on the device, results
-    back as float64 [n] with empty reads masked to -1e30."""
-    if len(alleles) == 0:
-        return np.zeros(0, dtype=np.float64)
-    (allele, read, qual, alen, rlen, coef), n, _, _ = pack_exact_batch(
+def positional_args(alleles, reads, quals, gap, hop, device):
+    """K4's inputs for ragged work items, on ``device``: the packed panels
+    (:func:`pack_exact_batch`) and the gap panels of :func:`positional_gaps`,
+    the read side from gap[0] / gap[2] (insertion open / extend) and the hop
+    params' ``prob_seq_*``, the allele side from gap[1] / gap[3] (deletion)
+    and ``prob_ref_*``.  Returns (allele, read, qual, alen, rlen, io, ie, do,
+    de)."""
+    (allele, read, qual, alen, rlen, _), n, _, _ = pack_exact_batch(
         alleles, reads, quals, gap
     )
-    if general:
-        coef = general_coef(gap)
-    fn = general_forward if general else exact_forward
-    out = fn(*to_device((allele, read, qual, alen, rlen, coef), device))
+    read_lens = np.fromiter((len(r) for r in reads), dtype=np.int32, count=n)
+    a, r, q, al, rl, rlens = to_device((allele, read, qual, alen, rlen, read_lens), device)
+    io, ie = positional_gaps(r, rlens, gap[0], gap[2], hop.prob_seq_homopolymer,
+                             hop.prob_seq_extend_homopolymer)
+    do, de = positional_gaps(a, al, gap[1], gap[3], hop.prob_ref_homopolymer,
+                             hop.prob_ref_extend_homopolymer)
+    return a, r, q, al, rl, io, ie, do, de
+
+
+def forward_items(alleles, reads, quals, gap, device, general, hop=None):
+    """Batched forward log-probs of ragged work items on ``device``: K4 when
+    ``hop`` (the homopolymer hop params) is given (:func:`positional_args`),
+    else packed on the host and K2 (``general=False``) or K3; results back
+    as float64 [n] with empty reads masked to -1e30."""
+    if len(alleles) == 0:
+        return np.zeros(0, dtype=np.float64)
+    if hop is not None:
+        out = positional_forward(*positional_args(alleles, reads, quals, gap, hop, device))
+    else:
+        (allele, read, qual, alen, rlen, coef), _, _, _ = pack_exact_batch(
+            alleles, reads, quals, gap
+        )
+        if general:
+            coef = general_coef(gap)
+        fn = general_forward if general else exact_forward
+        out = fn(*to_device((allele, read, qual, alen, rlen, coef), device))
     return mask_empty(out.cpu().numpy().astype(np.float64), reads)

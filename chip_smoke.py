@@ -5,11 +5,17 @@
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
 with nvcc (sm_90a, one process per source), then runs seven phases, each
-printing one JSON line:
+printing one JSON line.  It refuses every import of ``jax``, ``jaxlib`` and
+the JAX package ``varlociraptor_tpu``:
 
   (a) kernel_vs_plain  K1 against its plain torch version on the card, at the
-                       shapes the engine gives it and at small edge shapes;
-                       both timed with CUDA events after a warm-up.
+                       shapes the engine gives it (the bench size and the
+                       call CLI's window, with their bounds), at small edge
+                       shapes and on the edge sets of
+                       ``bench_utils.k1_edge_rows`` (3 and 256 reads, terms
+                       near and below the bottom of the normal range, zero
+                       terms, all-masked rows, 1 and 129 classes); both
+                       timed with CUDA events after a warm-up.
   (a') pairhmm_vs_plain
                        K2 and K3 against their plain torch versions on the
                        card: 4096 x 160 x 100 and 16384 x 256 x 150 items
@@ -51,7 +57,11 @@ printing one JSON line:
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
 launches counted in phase (c), K2 and K3 with those counted in phase (d)'s
-preprocess steps, K4 with those of phase (e)'s; the last line is
+preprocess steps, K4 with those of phase (e)'s; each with its time, its
+plain version's, and its bound (operations over the float32 peak or bytes
+over the memory rate, whichever is larger, on that kernel's timed inputs);
+no single PyTorch call computes any of them (library_ms null); the last
+line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero, and without a
 CUDA device the script exits non-zero before printing anything.  Scratch
 files go to build/chip_smoke/ inside the checkout.
@@ -85,6 +95,20 @@ GAP_ONT = (-5.278515, -5.472671, -1.049822, -0.867501)
 # homopolymer hop rates of phase (a''): ln 0.05 for every base, open == extend
 # as the estimator gives them
 HOP_LN = -2.995732273553991
+# top-level packages the port must never import
+REFUSED = ("jax", "jaxlib", "varlociraptor_tpu")
+# NVIDIA H100 SXM peaks (data sheet, 700 W): float32 outside the tensor
+# cores, and HBM3
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# float32 operations, an FMA counted as 2 as the peak counts it.  K1 per
+# (row, class, read): w = clip(p * (nu - kappa) + kappa, 0, 1) (one FMA, the
+# clip a saturate), t = w * (a - r) + (r + m) (one FMA), the log and the read
+# sum: 6; a - r and r + m once per (row, read), nu - kappa once per class.
+K1_OPS_PER_CELL = 6
+# K2 / K3 / K4 per (allele row, read base) of their column recurrences
+# (ops/pairhmm_column.py plain versions)
+OPS_PER_CELL = {"exact": 7, "general": 16, "positional": 19}
 
 
 class PhaseError(RuntimeError):
@@ -92,20 +116,38 @@ class PhaseError(RuntimeError):
 
 
 class _RefuseJax:
-    """Import hook that refuses ``jax`` / ``jaxlib`` and keeps the stack of
-    every attempt: the port must run without JAX even where it is installed.
-    A library's guarded optional import just sees ImportError."""
+    """Import hook that refuses ``jax`` / ``jaxlib`` and the JAX package
+    ``varlociraptor_tpu``, and keeps the stack of every attempt: the port must
+    run without JAX and without the JAX package even where they are
+    installed.  A library's guarded optional import just sees ImportError."""
 
     def __init__(self):
         self.attempts = []
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in REFUSED:
             import traceback
 
             self.attempts.append((name, "".join(traceback.format_stack(limit=25))))
             raise ModuleNotFoundError(f"chip_smoke refuses to import {name}", name=name)
         return None
+
+
+def roofline(ops, nbytes):
+    """The least time the card could take: operations over the float32
+    peak or bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k1_roofline(args):
+    """K1's bound on its inputs: every (row, class, read) cell, each input
+    read once and the [N, U] output written once."""
+    N, D = args[0].shape
+    U = args[4].shape[0]
+    return roofline(K1_OPS_PER_CELL * N * U * D + 2 * N * D + U,
+                    4 * (4 * N * D + 2 * U + N * U))
 
 
 def emit(obj):
@@ -143,35 +185,6 @@ def plain_k1():
         k1.ll_classes = kernel
 
 
-def k1_rows(engine, n_loci, depth, seed, which):
-    """Folded K1 inputs for one engine call's sample: ``which`` = "pair"
-    (tumor, unique (nu, kappa) classes) or "grid" (normal, own subgrid)."""
-    import torch
-
-    from varlociraptor_tpu_torch.bench_utils import engine_inputs
-    from varlociraptor_tpu_torch.ops.likelihood import _read_terms
-
-    feats, mask, ba, br, by, *_ = engine_inputs(
-        engine, n_loci=n_loci, depth=depth, seed=seed
-    )
-    dev = engine.device
-    if which == "pair":
-        si = engine.pairs[0][0]
-        nu, kappa, _ = engine._pair_t[si]
-    else:
-        si = engine.root_samples[0]
-        nu = engine._values_t[si]
-        kappa = (nu == 1.0).to(torch.float32)
-    t = lambda x: torch.as_tensor(x[:, si]).to(dev)  # noqa: E731
-    a, r, m, c, psa = _read_terms(t(feats), t(ba), t(br), t(by))
-    mk = t(mask)[:, None, :]
-    L, B, D = a.shape
-    fold = lambda x, v: torch.where(mk, x, v).reshape(L * B, D).contiguous()  # noqa: E731
-    return (fold(a, 1.0), fold(r, 1.0), fold(m, 0.0),
-            psa.expand(L, B, D).reshape(L * B, D).contiguous(),
-            nu.contiguous(), kappa.contiguous())
-
-
 def edge_rows(seed, dev, L=16, B=3, D=24, U=37):
     """The edge shapes of tests/test_pallas_kernel.py (N = 48 rows, not a
     multiple of the row tile; U = 37; D = 24), folded K1 inputs."""
@@ -201,10 +214,12 @@ def edge_rows(seed, dev, L=16, B=3, D=24, U=37):
             psa.expand(L, B, D).reshape(L * B, D).contiguous(), t(nu), t(kap))
 
 
-def phase_kernel_vs_plain(engine, bench_loci=32768, timer=cuda_ms):
+def phase_kernel_vs_plain(engine, bench_loci=32768, window_loci=1024, timer=cuda_ms):
     import numpy as np
     import torch
 
+    from varlociraptor_tpu_torch.bench_utils import K1_EDGE_CASES, k1_edge_rows
+    from varlociraptor_tpu_torch.bench_utils import k1_engine_rows as k1_rows
     from varlociraptor_tpu_torch.ops.ll_classes import ll_classes, ll_classes_reference
 
     cases = [
@@ -213,13 +228,13 @@ def phase_kernel_vs_plain(engine, bench_loci=32768, timer=cuda_ms):
         ("grid_d64", k1_rows(engine, 1024, 64, 2, "grid")),
         ("edge_seed0", edge_rows(0, engine.device)),
         ("edge_seed7", edge_rows(7, engine.device)),
-    ]
-    results = []
-    worst = 0.0
-    for name, args in cases:
-        got = ll_classes(*args)
-        ref = ll_classes_reference(*args)
-        g, r = got.cpu().numpy(), ref.cpu().numpy()
+    ] + [(name, tuple(torch.as_tensor(x, device=engine.device) for x in k1_edge_rows(name)))
+         for name in K1_EDGE_CASES]
+
+    def check(name, args):
+        """Kernel against the plain version: the same finiteness, K1_TOL."""
+        g = ll_classes(*args).cpu().numpy()
+        r = ll_classes_reference(*args).cpu().numpy()
         fin = np.isfinite(r)
         if not np.array_equal(np.isfinite(g), fin):
             raise PhaseError(f"K1 {name}: finiteness differs from the plain version")
@@ -227,23 +242,29 @@ def phase_kernel_vs_plain(engine, bench_loci=32768, timer=cuda_ms):
         rel = float(np.max(np.abs(g[fin] - r[fin]) / np.maximum(1, np.abs(r[fin])))) if fin.any() else 0.0
         if not rel <= K1_TOL:
             raise PhaseError(f"K1 {name}: rel err {rel} > {K1_TOL}")
-        worst = max(worst, abs_err)
         N, D = args[0].shape
+        return {"case": name, "N": N, "U": int(args[4].shape[0]), "D": D,
+                "max_abs_err": abs_err, "max_rel_err": rel}
+
+    results = []
+    for name, args in cases:
         results.append({
-            "case": name, "N": N, "U": int(args[4].shape[0]), "D": D,
-            "max_abs_err": abs_err, "max_rel_err": rel,
+            **check(name, args),
             "ms": timer(lambda: ll_classes(*args), 20),
             "plain_ms": timer(lambda: ll_classes_reference(*args), 5),
         })
-    # the engine's own shape at the bench size: 32768 loci x 4 combos
-    big = k1_rows(engine, bench_loci, 64, 0, "pair")
-    bench = {
-        "case": "pair_bench", "N": big[0].shape[0], "U": int(big[4].shape[0]),
-        "D": big[0].shape[1],
-        "ms": timer(lambda: ll_classes(*big), 5),
-        "plain_ms": timer(lambda: ll_classes_reference(*big), 2),
-    }
-    results.append(bench)
+    # the engine's own shapes: the bench size (32768 loci x 4 combos) and
+    # the call CLI's window (1024 loci x 4 combos)
+    for name, n_loci in (("pair_window", window_loci), ("pair_bench", bench_loci)):
+        big = k1_rows(engine, n_loci, 64, 0, "pair")
+        bench = {
+            **check(name, big),
+            "ms": timer(lambda: ll_classes(*big), 20 if name == "pair_window" else 5),
+            "plain_ms": timer(lambda: ll_classes_reference(*big), 2),
+            **k1_roofline(big),
+        }
+        results.append(bench)
+    worst = max(case["max_abs_err"] for case in results)
     return {"phase": "kernel_vs_plain", "tol_rel": K1_TOL, "cases": results,
             "max_abs_err": worst}, bench
 
@@ -417,8 +438,12 @@ def pairhmm_case(kind, name, fn, ref_fn, dev, timer):
     if n >= 4096:
         case["ms"] = timer(lambda: fn(*dev), 10)
         case["plain_ms"] = timer(lambda: ref_fn(*dev), 2)
+        # the cells these items need (allele length x read length), every
+        # input read once and the [B] output written once
         cells = (dev[3].double() * dev[4].double()).sum().item()
         case["gcells_per_s"] = cells / case["ms"] / 1e6
+        case.update(roofline(OPS_PER_CELL[kind] * cells,
+                             sum(t.numel() * t.element_size() for t in dev) + 4 * n))
     return case
 
 
@@ -446,7 +471,7 @@ def phase_pairhmm_vs_plain(timer=cuda_ms):
 
 def phase_positional_vs_plain(timer=cuda_ms):
     """(a''): K4 on the sets of (a'), the gap panels built on the card."""
-    from varlociraptor_tpu.estimation.alignment_properties import HopParams
+    from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams
     from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
     hop = HopParams(*([[HOP_LN] * 4] * 4))
@@ -526,7 +551,7 @@ def estimate_props(w, path, secs):
     """``estimate alignment-properties`` on the normal BAM into ``path``."""
     import io
 
-    from varlociraptor_tpu.estimation.alignment_properties import AlignmentProperties
+    from varlociraptor_tpu_torch.estimation.alignment_properties import AlignmentProperties
 
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -558,7 +583,7 @@ def preprocess_samples(w, work, props_path, secs, device, flags=()):
 def cpu_recheck(w, work, props_path, obs, secs, n_cpu, mode="exact"):
     """The first n_cpu loci of each sample again on the CPU (the plain
     kernels), same chunk; the observations must equal the card's."""
-    from varlociraptor_tpu.estimation.alignment_properties import AlignmentProperties
+    from varlociraptor_tpu_torch.estimation.alignment_properties import AlignmentProperties
     from varlociraptor_tpu_torch.calling.preprocess import PreprocessOptions, preprocess
     from varlociraptor_tpu_torch.compare import compare_observation_files
 
@@ -648,11 +673,11 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
 
     import numpy as np
 
-    from varlociraptor_tpu.estimation.alignment_properties import (
+    from varlociraptor_tpu_torch.estimation.alignment_properties import (
         AlignmentProperties,
         GapParams,
     )
-    from varlociraptor_tpu.io import native
+    from varlociraptor_tpu_torch.io import native
     from varlociraptor_tpu_torch.bench_utils import synth_preprocess_world
 
     res = {"phase": "preprocess", "native_host_library": native.available()}
@@ -810,23 +835,23 @@ def main():
         print(f"chip_smoke: refused an import of {name} from:\n{stack}", file=sys.stderr)
         if str(ROOT) in stack.replace(__file__, ""):
             repo_attempts.append(name)
-    if repo_attempts or any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules):
+    if repo_attempts or any(m.split(".")[0] in REFUSED for m in sys.modules):
         raise PhaseError(f"the port tried to import {repo_attempts or 'jax'}")
+    # no single PyTorch call computes any of the four functions
+    timing = lambda case: {k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": a["max_abs_err"], "ms": bench["ms"],
-        "plain_ms": bench["plain_ms"],
+        "max_abs_err": a["max_abs_err"], **timing(bench), "library_ms": None,
     }] + [{
         "name": f"pairhmm_{kind}", "route": "cuda", "source": K23_SOURCE,
         "replaces": replaces, "launches": hmm_launches[kind],
-        "max_abs_err": a2["max_abs_err"][kind], "ms": hmm_bench[kind]["ms"],
-        "plain_ms": hmm_bench[kind]["plain_ms"],
+        "max_abs_err": a2["max_abs_err"][kind], **timing(hmm_bench[kind]),
+        "library_ms": None,
     } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))] + [{
         "name": "pairhmm_positional", "route": "cuda", "source": K23_SOURCE,
         "replaces": K4_REPLACES, "launches": hp_launches["positional"],
-        "max_abs_err": a3["max_abs_err"], "ms": k4_bench["ms"],
-        "plain_ms": k4_bench["plain_ms"],
+        "max_abs_err": a3["max_abs_err"], **timing(k4_bench), "library_ms": None,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,15 +20,17 @@ import numpy as np
 import pytest
 import torch
 
-from varlociraptor_tpu.estimation.alignment_properties import HopParams
 from varlociraptor_tpu_torch.bench_utils import (
+    K1_EDGE_CASES,
     engine_inputs,
+    k1_edge_rows,
     pairhmm_edge_items,
     pairhmm_items,
     pairhmm_shape_items,
     tumor_normal_engine,
 )
 from varlociraptor_tpu_torch.compare import compare_outputs
+from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams
 from varlociraptor_tpu_torch.ops import ll_classes as k1
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
@@ -82,6 +84,26 @@ def test_k1_kernel_matches_plain(card, N, D, U):
     assert g.shape == (N, U) and got.dtype == torch.float32
     fin = np.isfinite(r)
     assert np.array_equal(np.isfinite(g), fin)
+    err = np.abs(g[fin] - r[fin]) / np.maximum(1.0, np.abs(r[fin]))
+    assert err.max() <= TOL, err.max()
+
+
+@pytest.mark.parametrize("name", K1_EDGE_CASES)
+def test_k1_kernel_edge_cases(card, name):
+    """Inputs that the kernel's exponent-split logs can get wrong: reads not
+    a multiple of the group, several staged chunks, terms near and below the
+    bottom of the normal range and zero terms, all-masked rows, one class
+    and a class count that is not a multiple of the tile
+    (bench_utils.k1_edge_rows)."""
+    args = [torch.as_tensor(x, device=card) for x in k1_edge_rows(name)]
+    got = k1.ll_classes(*args)
+    ref = k1.ll_classes_reference(*args)
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    assert g.shape == r.shape
+    fin = np.isfinite(r)
+    assert np.array_equal(np.isfinite(g), fin)
+    if name == "denormal_and_zero":
+        assert not fin.all()  # the zero terms reach -inf
     err = np.abs(g[fin] - r[fin]) / np.maximum(1.0, np.abs(r[fin]))
     assert err.max() <= TOL, err.max()
 

@@ -1,13 +1,17 @@
-"""The port runs without JAX, and never falls back from CUDA to the CPU.
+"""The port runs without JAX and without the JAX package, and never falls
+back from CUDA to the CPU.
 
-* a subprocess that blocks ``jax`` and ``jaxlib`` imports the port and runs
+* a subprocess that blocks ``jax``, ``jaxlib`` and ``varlociraptor_tpu``
+  imports the port and runs
   its CLI ``call variants tumor-normal`` and ``filter-calls control-fdr`` on
   tiny synthetic observation files, and ``estimate alignment-properties`` and
   ``preprocess variants`` (default and ``--pairhmm-mode homopolymer`` with
   hop params) on a tiny synthetic BAM world, with ``--device cpu``;
 * ``--device cuda`` on a machine without a usable card raises, for ``call``
   and for ``preprocess``;
-* no file of the port (nor chip_smoke.py) imports jax.
+* no file of the port (nor chip_smoke.py and the port's scripts) imports
+  jax or the JAX package ``varlociraptor_tpu``, not even its jax-free host
+  modules: the port keeps its own copies of those.
 """
 
 import re
@@ -32,6 +36,7 @@ _BLOCKED_RUN = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+sys.modules["varlociraptor_tpu"] = None
 sys.path.insert(0, sys.argv[1])
 work = sys.argv[2]
 from varlociraptor_tpu_torch import cli
@@ -52,7 +57,7 @@ buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     assert cli.run(["estimate", "alignment-properties", w["fasta"], "--bam",
                     w["normal"]]) == 0
-from varlociraptor_tpu.estimation.alignment_properties import (
+from varlociraptor_tpu_torch.estimation.alignment_properties import (
     AlignmentProperties, HopParams,
 )
 props = AlignmentProperties.from_json(buf.getvalue())
@@ -74,7 +79,8 @@ print("PREPROCESSED", len(ObservationReader(work + "/t.obs").read_window(100)[0]
 print("HOMOPOLYMER", len(ObservationReader(work + "/t_hp.obs").read_window(100)[0]),
       "K4", bool(k4_calls))
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m] is not None)
+                if m.split(".")[0] in ("jax", "jaxlib", "varlociraptor_tpu")
+                and sys.modules[m] is not None)
 assert not loaded, loaded
 records = [l for l in open(work + "/calls.vcf") if not l.startswith("#")]
 print("RECORDS", len(records))
@@ -123,11 +129,16 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 
 _JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
+_JAX_PACKAGE_IMPORT = re.compile(r"^\s*(import|from)\s+varlociraptor_tpu(\.|\s|$)", re.M)
+_PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + [
+    "chip_smoke.py", "scripts/torch_k1_variants.py", "scripts/torch_e2e_ab.py"]
 
 
-@pytest.mark.parametrize(
-    "path",
-    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
-)
+@pytest.mark.parametrize("path", _PORT_FILES)
 def test_no_jax_import_in_the_port(path):
     assert not _JAX_IMPORT.search((ROOT / path).read_text()), path
+
+
+@pytest.mark.parametrize("path", _PORT_FILES)
+def test_no_jax_package_import_in_the_port(path):
+    assert not _JAX_PACKAGE_IMPORT.search((ROOT / path).read_text()), path

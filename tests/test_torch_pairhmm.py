@@ -29,11 +29,13 @@ import pytest
 import torch
 
 import varlociraptor_tpu.ops.pallas_pairhmm as jpp
-from varlociraptor_tpu.estimation.alignment_properties import GapParams, HopParams
+from varlociraptor_tpu.estimation.alignment_properties import GapParams as JaxGapParams
+from varlociraptor_tpu.estimation.alignment_properties import HopParams as JaxHopParams
 from varlociraptor_tpu.ops.pairhmm import BatchedPairHMM as JaxPairHMM
 from varlociraptor_tpu.ops.pairhmm import NEG_INF, _forward_hp_impl, _forward_impl
 from varlociraptor_tpu_torch.bench_utils import pairhmm_edge_items, pairhmm_items
 from varlociraptor_tpu_torch.convert import pairhmm_from_jax
+from varlociraptor_tpu_torch.estimation.alignment_properties import GapParams, HopParams
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 from varlociraptor_tpu_torch.ops.pairhmm import BatchedPairHMM
 
@@ -47,6 +49,13 @@ LN_005 = math.log(0.05)
 HOP = HopParams(*([[LN_005] * 4] * 4))
 HOP_MIXED = HopParams([LN_005, -math.inf, -20.0, -3.0], [-2.5, LN_005, -math.inf, -9.0],
                       [-1.0, -math.inf, -0.5, -30.0], [-math.inf, -1.2, -0.7, -0.1])
+
+
+def _jax(params):
+    """The JAX package's copy of a port ``GapParams`` / ``HopParams``."""
+    if params is None:
+        return None
+    return {GapParams: JaxGapParams, HopParams: JaxHopParams}[type(params)](**vars(params))
 
 
 def _wavefront(alleles, reads, quals, gap):
@@ -212,10 +221,11 @@ def test_dispatch_refuses_what_is_not_ported():
 
 @pytest.mark.parametrize("gaps", [DEFAULT_GAPS, ONT_GAPS], ids=["zero", "ont"])
 def test_state_carried_from_jax(gaps):
-    jax_hmm = JaxPairHMM(gaps, hop_params=HopParams(), mode="exact")
+    jax_hmm = JaxPairHMM(_jax(gaps), hop_params=JaxHopParams(), mode="exact")
     hmm = pairhmm_from_jax(jax_hmm, "cpu")
     assert hmm.gap.tobytes() == jax_hmm.gap.tobytes()
-    assert (hmm.mode, hmm.hop, str(hmm.device)) == ("exact", jax_hmm.hop, "cpu")
+    assert (hmm.mode, str(hmm.device)) == ("exact", "cpu")
+    assert type(hmm.hop) is HopParams and vars(hmm.hop) == vars(jax_hmm.hop)
     # both packages pack the same coefficient vectors from it
     _, _, _, _, _, jc = jpp.pack_exact_batch([b"AC"], [b"A"], [b"\x1e"], jax_hmm.gap)[0]
     assert phc.exact_coef(hmm.gap).tobytes() == jc[0].tobytes()
@@ -224,10 +234,11 @@ def test_state_carried_from_jax(gaps):
 def test_state_carried_from_jax_homopolymer(monkeypatch):
     """A JAX homopolymer ``BatchedPairHMM`` maps to a port one whose gap
     panels and K4 results agree with the JAX kernel route's."""
-    jax_hmm = JaxPairHMM(ONT_GAPS, hop_params=HOP_MIXED, mode="homopolymer")
+    jax_hmm = JaxPairHMM(_jax(ONT_GAPS), hop_params=_jax(HOP_MIXED), mode="homopolymer")
     hmm = pairhmm_from_jax(jax_hmm, "cpu")
     assert hmm.gap.tobytes() == jax_hmm.gap.tobytes()
-    assert (hmm.mode, hmm.hop) == ("homopolymer", jax_hmm.hop)
+    assert hmm.mode == "homopolymer" and type(hmm.hop) is HopParams
+    assert vars(hmm.hop) == vars(jax_hmm.hop)
     alleles, reads, quals = _homopolymer_items(12, 5)
     jax_out, panels = _jax_k4_route(monkeypatch, jax_hmm, alleles, reads, quals)
     assert _rel(hmm.forward(alleles, reads, quals), jax_out) < TOL
@@ -299,7 +310,7 @@ def test_positional_gaps_match_jax_panels(monkeypatch, gaps, hop, seed):
     """(i) ``positional_gaps`` bit for bit against the panels of the JAX
     package's K4 route: runs, N, lowercase bytes, an empty read, padding."""
     alleles, reads, quals = _homopolymer_items(16, seed)
-    jax_hmm = JaxPairHMM(gaps, hop_params=hop, mode="homopolymer")
+    jax_hmm = JaxPairHMM(_jax(gaps), hop_params=_jax(hop), mode="homopolymer")
     hmm = BatchedPairHMM(gaps, hop, mode="homopolymer", device="cpu")
     _, panels = _jax_k4_route(monkeypatch, jax_hmm, alleles, reads, quals)
     got = _port_panels(hmm, alleles, reads, quals)

@@ -50,6 +50,7 @@ from varlociraptor_tpu_torch import cli
 from varlociraptor_tpu_torch.bench_utils import _homopolymer_runs, synth_preprocess_world
 from varlociraptor_tpu_torch.calling.preprocess import PreprocessOptions, preprocess
 from varlociraptor_tpu_torch.compare import compare_observation_files, vcf_record_keys
+from varlociraptor_tpu_torch.convert import alignment_properties_from_jax
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
 ONT_GAPS = GapParams(math.log(5.1e-3), math.log(4.2e-3), math.log(0.35), math.log(0.42))
@@ -110,7 +111,8 @@ def test_preprocess_matches_jax(world, tmp_path, monkeypatch, model, kernel):
         )
         n_port = preprocess(
             world["candidates"], world[sample], world["fasta"], str(got),
-            sample_name=sample, alignment_properties=AlignmentProperties.from_json(props),
+            sample_name=sample,
+            alignment_properties=alignment_properties_from_jax(AlignmentProperties.from_json(props)),
             options=PreprocessOptions(log_mode="silent", pairhmm_mode=mode), device="cpu",
         )
         assert n_jax == n_port == world["n_candidates"]
@@ -120,6 +122,22 @@ def test_preprocess_matches_jax(world, tmp_path, monkeypatch, model, kernel):
         print(sample, model, info)
     # both ran their column kernels (per locus on the CPU), not another path
     assert jax_calls and port_calls
+
+
+@pytest.mark.parametrize("model", ["estimated", "ont", "homopolymer"])
+def test_alignment_properties_carried_from_jax(world, model):
+    """A JAX ``AlignmentProperties`` becomes the port's own class with the
+    same values (the port never takes the JAX package's classes)."""
+    from varlociraptor_tpu_torch.estimation import alignment_properties as port_ap
+
+    jax_props = AlignmentProperties.from_json(_props(world, model))
+    props = alignment_properties_from_jax(jax_props)
+    assert type(props) is port_ap.AlignmentProperties
+    assert type(props.gap_params) is port_ap.GapParams
+    assert type(props.hop_params) is port_ap.HopParams
+    assert props.to_json() == jax_props.to_json()
+    assert vars(props.gap_params) == vars(jax_props.gap_params)
+    assert vars(props.hop_params) == vars(jax_props.hop_params)
 
 
 @pytest.mark.parametrize("mode", ["exact", "homopolymer"])

@@ -9,12 +9,11 @@ import math
 
 import numpy as np
 
-from varlociraptor_tpu.grammar.compiler import compile_scenario_events
-from varlociraptor_tpu.grammar.scenario import tumor_normal_scenario
-from varlociraptor_tpu.ops.grid import AFGrid
-
 from .evidence.observation import F, N_FEATURES
+from .grammar.compiler import compile_scenario_events
+from .grammar.scenario import tumor_normal_scenario
 from .ops.biases import FULL_COMBOS_DEFAULT
+from .ops.grid import AFGrid
 from .ops.posterior import PosteriorEngine, SampleConfig
 
 
@@ -91,6 +90,86 @@ def engine_inputs(engine, n_loci=256, depth=64, seed=0):
     branch_gates = np.ones((n_loci, engine.n_branches), dtype=bool)
     ln_prior_absent = np.full(n_loci, math.log(0.5), dtype=np.float32)
     return feats, mask, ba, br, by, active, branch_gates, ln_prior_absent
+
+
+def k1_engine_rows(engine, n_loci, depth, seed, which):
+    """Folded K1 inputs (a, r, m, psa, nu, kappa) of one engine call's
+    sample on the engine's device: ``which`` = "pair" (tumor, unique
+    (nu, kappa) classes) or "grid" (normal, its own subgrid)."""
+    import torch
+
+    from .ops.likelihood import _read_terms
+
+    feats, mask, ba, br, by, *_ = engine_inputs(engine, n_loci=n_loci, depth=depth, seed=seed)
+    dev = engine.device
+    if which == "pair":
+        si = engine.pairs[0][0]
+        nu, kappa, _ = engine._pair_t[si]
+    else:
+        si = engine.root_samples[0]
+        nu = engine._values_t[si]
+        kappa = (nu == 1.0).to(torch.float32)
+    t = lambda x: torch.as_tensor(x[:, si]).to(dev)  # noqa: E731
+    a, r, m, c, psa = _read_terms(t(feats), t(ba), t(br), t(by))
+    mk = t(mask)[:, None, :]
+    L, B, D = a.shape
+    fold = lambda x, v: torch.where(mk, x, v).reshape(L * B, D).contiguous()  # noqa: E731
+    return (fold(a, 1.0), fold(r, 1.0), fold(m, 0.0),
+            psa.expand(L, B, D).reshape(L * B, D).contiguous(),
+            nu.contiguous(), kappa.contiguous())
+
+
+# edge cases of K1's arithmetic (see k1_edge_rows)
+K1_EDGE_CASES = ("d3", "d256", "underflow", "denormal_and_zero", "all_masked", "u1",
+                 "u_ragged")
+
+
+def k1_edge_rows(name, seed=0):
+    """Folded K1 inputs (a, r, m, psa, nu, kappa), numpy float32, of one
+    edge case: a fifth of the reads masked to (1, 1, 0), one class at
+    nu = kappa = 1 and one at nu = 0, and
+
+    * ``d3`` / ``d256``: 3 reads (not a multiple of the reads per log) and
+      256 reads (four staged chunks);
+    * ``underflow``: half the reads at a = 1, r = m = 1e-35 and classes at
+      or near w = 0, so the terms sit near the bottom of the normal range;
+    * ``denormal_and_zero``: 128 reads; in the second 64 of the first 32
+      rows, r = m = 1e-40 (denormal terms) or r = m = 0 (t = 0 where w = 0:
+      -inf), so those row tiles take that chunk on the per-cell path;
+    * ``all_masked``: every other row all masked (a sum of exactly 0);
+    * ``u1`` / ``u_ragged``: one class, and 129 classes (not a multiple of
+      the class tile)."""
+    rng = np.random.default_rng(seed)
+    N, D, U = {"d3": (100, 3, 37), "d256": (512, 256, 711), "underflow": (64, 64, 129),
+               "denormal_and_zero": (64, 128, 37), "all_masked": (64, 64, 711),
+               "u1": (300, 64, 1), "u_ragged": (200, 40, 129)}[name]
+    a = rng.uniform(0.01, 1.0, (N, D))
+    r = rng.uniform(0.01, 1.0, (N, D))
+    m = rng.uniform(0.0, 0.1, (N, D))
+    psa = rng.uniform(0.0, 1.0, (N, D))
+    nu = rng.uniform(0.0, 1.0, U)
+    kappa = np.zeros(U)
+    if name == "underflow":
+        tiny = rng.random((N, D)) < 0.5
+        a[tiny], r[tiny], m[tiny] = 1.0, 1e-35, 1e-35
+        nu[: U // 2] = rng.uniform(0.0, 1e-6, U // 2)
+    if name == "denormal_and_zero":
+        sub = np.zeros((N, D), bool)
+        sub[:32, 64:] = True
+        zero = sub & (rng.random((N, D)) < 0.1)
+        den = sub & ~zero & (rng.random((N, D)) < 0.4)
+        a[den | zero] = 1.0
+        r[den], m[den] = 1e-40, 1e-40
+        r[zero], m[zero] = 0.0, 0.0
+        nu[1:4] = [0.0, 1e-30, 1e-3]
+    masked = rng.random((N, D)) < 0.2
+    if name == "all_masked":
+        masked[::2] = True
+    a[masked], r[masked], m[masked] = 1.0, 1.0, 0.0
+    nu[0], kappa[0] = 1.0, 1.0
+    if U > 1:
+        nu[-1] = 0.0
+    return tuple(np.ascontiguousarray(x, dtype=np.float32) for x in (a, r, m, psa, nu, kappa))
 
 
 def pairhmm_items(n=21, seed=3):
@@ -352,7 +431,7 @@ def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
     """Paired-end library over a diploid genome (each fragment samples one
     haplotype), sorted and written with BamWriter + BAI.  With ``slip_rng``,
     reads carry homopolymer slips (:func:`_slip_reads`) drawn from it."""
-    from varlociraptor_tpu.io.bam import BamRecord, BamWriter
+    from .io.bam import BamRecord, BamWriter
 
     L = read_len
     n_pairs = int(ref_len * coverage / (2 * L))
@@ -534,7 +613,7 @@ def synth_observation_files(out_dir, n_loci=1000, seed=0, purity=0.75,
     "germline" to 0-based candidate positions."""
     from pathlib import Path
 
-    from varlociraptor_tpu.calling.variants import VariantInfo
+    from .calling.variants import VariantInfo
 
     from .calling.observations import ObservationWriter, ObsColumns
     from .evidence.observation import HOMOPOLYMER_NONE

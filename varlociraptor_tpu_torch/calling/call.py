@@ -18,11 +18,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from varlociraptor_tpu.grammar.compiler import compile_scenario_events
-from varlociraptor_tpu.grammar.scenario import Scenario
-from varlociraptor_tpu.io.vcf import VcfWriter, open_variant_writer
-from varlociraptor_tpu.ops.grid import AFGrid
-from varlociraptor_tpu.ops.prior import build_prior
+from ..grammar.compiler import compile_scenario_events
+from ..grammar.scenario import Scenario
+from ..io.vcf import VcfWriter, open_variant_writer
+from ..ops.grid import AFGrid
+from ..ops.prior import build_prior
 
 from ..device import resolve_device
 from ..ops.biases import FULL_COMBOS_DEFAULT as FULL_COMBOS
@@ -121,7 +121,7 @@ class GenericCaller:
     def _prior_for(self, contig, vartype):
         key = (contig, vartype)
         if key not in self._prior_cache:
-            from varlociraptor_tpu.ops.prior import check_prior
+            from ..ops.prior import check_prior
 
             prior = build_prior(self.scenario, contig, vartype)
             check_prior(prior)

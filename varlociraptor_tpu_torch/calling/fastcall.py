@@ -27,7 +27,7 @@ from ..evidence.observation import (
     STRAND_FORWARD,
     STRAND_REVERSE,
 )
-from varlociraptor_tpu.io.vcf import VcfRecord
+from ..io.vcf import VcfRecord
 from ..ops.biases import FULL_COMBOS_DEFAULT as FULL_COMBOS
 from ..ops.compact_obs import (
     CU_ALT_LOCUS,

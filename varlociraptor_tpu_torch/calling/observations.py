@@ -35,7 +35,7 @@ from ..evidence.observation import (
     Pileup,
     ReadObservation,
 )
-from varlociraptor_tpu.calling.variants import VariantInfo
+from ..calling.variants import VariantInfo
 
 OBSERVATION_FORMAT_VERSION = "vlt-tpu-1"  # JSONL; parity target: reference v15
 OBSERVATION_FORMAT_VERSION_V2 = "vlt-tpu-2"

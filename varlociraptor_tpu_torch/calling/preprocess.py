@@ -27,11 +27,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace as _dc_replace
 
-from varlociraptor_tpu.calling.variants import VariantInfo, collect_variants
-from varlociraptor_tpu.estimation.alignment_properties import AlignmentProperties
-from varlociraptor_tpu.io.bam import BamReader
-from varlociraptor_tpu.io.fasta import FastaBuffer
-from varlociraptor_tpu.io.vcf import open_variant_file
+from ..calling.variants import VariantInfo, collect_variants
+from ..estimation.alignment_properties import AlignmentProperties
+from ..io.bam import BamReader
+from ..io.fasta import FastaBuffer
+from ..io.vcf import open_variant_file
 
 from ..device import resolve_device
 from ..evidence.extraction import extract_observations
@@ -164,7 +164,7 @@ def preprocess(
     # CRAM inputs decode against the same reference buffer
     bam = bam or BamReader(bam_path, reference=reference)
     if alignment_properties is None:
-        from varlociraptor_tpu.estimation.alignment_properties import estimate
+        from ..estimation.alignment_properties import estimate
 
         alignment_properties = estimate(
             bam, omit_insert_size=options.omit_insert_size, reference=reference
@@ -182,7 +182,7 @@ def preprocess(
             last[r.chrom] = r.pos
             order.append(r.chrom)
         elif r.pos < last[r.chrom]:
-            from varlociraptor_tpu.errors import UnsortedVariantFileError
+            from ..errors import UnsortedVariantFileError
 
             raise UnsortedVariantFileError(
                 f"{r.chrom}:{last[r.chrom] + 1}", f"{r.chrom}:{r.pos + 1}"

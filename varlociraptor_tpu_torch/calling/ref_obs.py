@@ -39,7 +39,7 @@ from ..evidence.observation import (
     set_prob_mapping,
     set_prob_overlap,
 )
-from varlociraptor_tpu.calling.variants import collect_variants
+from ..calling.variants import collect_variants
 
 # reference enum orders (read_observation.rs:51-57,125-129,213-217)
 _STRAND = {0: STRAND_FORWARD, 1: STRAND_REVERSE, 2: STRAND_BOTH, 3: STRAND_NONE}
@@ -275,7 +275,7 @@ class ReferenceObservationReader:
     """Iterate (VariantInfo, Pileup) from a reference observation BCF/VCF."""
 
     def __init__(self, path, sample_name: str | None = None):
-        from varlociraptor_tpu.io.vcf import open_variant_file
+        from ..io.vcf import open_variant_file
 
         self.path = path
         self._reader = open_variant_file(path)
@@ -317,7 +317,7 @@ def open_observations(path, sample_name: str | None = None):
         return _ChainedReader(
             [open_observations(p, sample_name) for p in path.split(",")]
         )
-    from varlociraptor_tpu.io.vcf import open_variant_file
+    from ..io.vcf import open_variant_file
 
     head = open(path, "rb").read(4)
     if head[:2] == b"\x1f\x8b":
@@ -578,7 +578,7 @@ class ReferenceObservationWriter:
     def __init__(self, path, sample_name: str, options: dict | None = None):
         import json as _json
 
-        from varlociraptor_tpu.io.vcf import open_variant_writer
+        from ..io.vcf import open_variant_writer
 
         self.path = path
         header = [
@@ -602,7 +602,7 @@ class ReferenceObservationWriter:
         self._writer.__enter__()
 
     def write_record(self, variant, pileup, aux: dict | None = None):
-        from varlociraptor_tpu.io.vcf import VcfRecord
+        from ..io.vcf import VcfRecord
 
         info = {}
         kind = variant.kind

@@ -145,7 +145,7 @@ def run(argv=None):
     args = build_parser().parse_args(argv)
 
     if args.command == "preprocess":
-        from varlociraptor_tpu.estimation.alignment_properties import AlignmentProperties
+        from .estimation.alignment_properties import AlignmentProperties
 
         from .calling.preprocess import PreprocessOptions, preprocess
 
@@ -179,9 +179,9 @@ def run(argv=None):
         return 0
 
     if args.command == "estimate":
-        from varlociraptor_tpu.estimation.alignment_properties import estimate
-        from varlociraptor_tpu.io.bam import BamReader
-        from varlociraptor_tpu.io.fasta import FastaBuffer
+        from .estimation.alignment_properties import estimate
+        from .io.bam import BamReader
+        from .io.fasta import FastaBuffer
 
         ref = FastaBuffer(args.reference)
         props = estimate(
@@ -194,7 +194,7 @@ def run(argv=None):
         return 0
 
     if args.command == "call":
-        from varlociraptor_tpu.grammar.scenario import Scenario, tumor_normal_scenario
+        from .grammar.scenario import Scenario, tumor_normal_scenario
 
         from .calling.call import CallOptions, call_generic
 

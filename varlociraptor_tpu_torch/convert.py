@@ -1,5 +1,5 @@
 """The state carried across from the JAX package: the posterior engine's
-setup tables and the pair-HMM's gap model.
+setup tables, the pair-HMM's gap model and the alignment properties.
 
 The posterior engine's "weights" are its setup tables: per-sample active
 subgrids, spectra and integration masks, support classes, the unique
@@ -93,11 +93,21 @@ def pairhmm_from_jax(jax_hmm, device):
     ``varlociraptor_tpu.ops.pairhmm.BatchedPairHMM``: its float32 log gap
     array (``gap``), ``mode`` and hop params are taken as they are, so both
     packages pack the same coefficient vectors."""
-    from varlociraptor_tpu.estimation.alignment_properties import GapParams
+    from .estimation.alignment_properties import GapParams, HopParams
 
     from .ops.pairhmm import BatchedPairHMM
 
-    hmm = BatchedPairHMM(GapParams(), hop_params=jax_hmm.hop, mode=jax_hmm.mode,
-                         device=device)
+    hop = None
+    if jax_hmm.hop is not None:
+        hop = HopParams(**{k: list(v) for k, v in vars(jax_hmm.hop).items()})
+    hmm = BatchedPairHMM(GapParams(), hop_params=hop, mode=jax_hmm.mode, device=device)
     hmm.gap = np.array(jax_hmm.gap, dtype=np.float32)
     return hmm
+
+
+def alignment_properties_from_jax(props):
+    """The port's ``AlignmentProperties`` equal to a JAX one, through the
+    JSON form both packages read and write."""
+    from .estimation.alignment_properties import AlignmentProperties
+
+    return AlignmentProperties.from_json(props.to_json())

@@ -26,7 +26,7 @@ import zlib
 
 import numpy as np
 
-from varlociraptor_tpu.io.bam import BamRecord, OP_S
+from ..io.bam import BamRecord, OP_S
 from ..utils.logprob import LOG_ZERO, np_ln_one_minus_exp
 from .observation import (
     RO_NONE,
@@ -516,7 +516,7 @@ def subsample_keep_mask(n: int, max_depth: int) -> np.ndarray:
     """
     if n <= max_depth:
         return np.ones(n, dtype=bool)
-    from varlociraptor_tpu.utils.rust_rand import SubsampleCandidates
+    from ..utils.rust_rand import SubsampleCandidates
 
     sub = SubsampleCandidates(max_depth, n)
     return np.array([sub.keep() for _ in range(n)], dtype=bool)

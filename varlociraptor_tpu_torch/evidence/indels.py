@@ -61,13 +61,13 @@ def estimate_insert_size(left, right):
 
 
 def _leading_hardclips(rec):
-    from varlociraptor_tpu.io.bam import OP_H
+    from ..io.bam import OP_H
 
     return int(rec.cigar[0][1]) if len(rec.cigar) and rec.cigar[0][0] == OP_H else 0
 
 
 def _trailing_hardclips(rec):
-    from varlociraptor_tpu.io.bam import OP_H
+    from ..io.bam import OP_H
 
     return int(rec.cigar[-1][1]) if len(rec.cigar) and rec.cigar[-1][0] == OP_H else 0
 
@@ -508,7 +508,7 @@ def single_indel_homopolymer_len(ref_allele: bytes, alt_allele: bytes):
     (homopolymers.rs:20-50): detect a single homopolymer indel between two
     allele strings via longest common prefix/suffix (equivalent to the
     reference's global alignment restricted to the single-indel case)."""
-    from varlociraptor_tpu.evidence.edit_distance import M, I, homopolymer_indel_operation
+    from ..evidence.edit_distance import M, I, homopolymer_indel_operation
 
     text, pattern = (ref_allele, alt_allele)
     flip = False
@@ -527,7 +527,7 @@ def single_indel_homopolymer_len(ref_allele: bytes, alt_allele: bytes):
     if p + s < len(pattern):
         return None  # substitutions or multiple indels involved
     k = len(text) - len(pattern)
-    from varlociraptor_tpu.evidence.edit_distance import D
+    from ..evidence.edit_distance import D
 
     ops = [M] * p + [D] * k + [M] * (len(pattern) - p)
     res = homopolymer_indel_operation(

@@ -18,12 +18,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from varlociraptor_tpu.io.bam import BamRecord, OP_D, OP_EQ, OP_H, OP_I, OP_M, OP_N, OP_S, OP_X
+from ..io.bam import BamRecord, OP_D, OP_EQ, OP_H, OP_I, OP_M, OP_N, OP_S, OP_X
 from ..ops.pairhmm import BatchedPairHMM
 from ..utils.logprob import LOG_ZERO, np_ln_add_exp
 from .observation import STRAND_NONE
 from .variants import AlleleSupport, strand_from_record
-from varlociraptor_tpu.evidence.edit_distance import (  # noqa: E402
+from ..evidence.edit_distance import (  # noqa: E402
     EDIT_BAND,
     EditHit,
     calc_hit,
@@ -112,7 +112,7 @@ class AlleleEmission:
 def path_score(ops, read_window, quals, gap):
     """Fast mode: score only the best edit path under the HMM model
     (PathHMMRealigner, realignment/mod.rs:546-677)."""
-    from varlociraptor_tpu.evidence.edit_distance import D, I, M, S
+    from ..evidence.edit_distance import D, I, M, S
 
     t_mi, t_md, t_ii, t_dd = (float(g) for g in gap)
     t_mm = math.log(max(1.0 - math.exp(t_mi) - math.exp(t_md), 1e-12))
@@ -221,7 +221,7 @@ class Realigner:
         self._scout = {}
 
     def flush_scout(self):
-        from varlociraptor_tpu.io.native import hybrid_hits_batch
+        from ..io.native import hybrid_hits_batch
 
         scout = self._scout
         self._scout = None
@@ -359,7 +359,7 @@ class Realigner:
                 if key not in memo and key not in patch_miss:
                     patch_miss[key] = (em_p, rw, props, er)
         if patch_miss:
-            from varlociraptor_tpu.io.native import hybrid_hits_batch
+            from ..io.native import hybrid_hits_batch
 
             items = list(patch_miss.items())
             parts = hybrid_hits_batch(
@@ -485,7 +485,7 @@ class Realigner:
         if scouting:
             return out
         if misses:
-            from varlociraptor_tpu.io.native import hybrid_hits_batch
+            from ..io.native import hybrid_hits_batch
 
             parts = hybrid_hits_batch(
                 [bytes(emissions[i].seq) for i in misses], [rb] * len(misses)

@@ -272,7 +272,7 @@ class Snv(VariantType):
         else:
             strand = STRAND_NONE
         # hardclips are part of the original read (snv.rs:130-135)
-        from varlociraptor_tpu.io.bam import OP_H
+        from ..io.bam import OP_H
 
         leading_hard = (
             int(record.cigar[0][1])
@@ -589,7 +589,7 @@ class Mnv(VariantType):
             and alt_edit_dist > 0
             and n_ref_matching_mismatch > 0
         ):
-            from varlociraptor_tpu.evidence.edit_distance import is_explainable_by_error_rates
+            from ..evidence.edit_distance import is_explainable_by_error_rates
 
             quals = record.qual.astype(np.float64)
             miscalls = -quals * math.log(10.0) / 10.0

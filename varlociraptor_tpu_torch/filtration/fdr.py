@@ -18,8 +18,8 @@ import math
 
 import numpy as np
 
-from varlociraptor_tpu.calling.variants import collect_variants
-from varlociraptor_tpu.io.vcf import VcfReader, open_variant_file, VcfWriter, open_variant_writer
+from ..calling.variants import collect_variants
+from ..io.vcf import VcfReader, open_variant_file, VcfWriter, open_variant_writer
 from ..utils.logprob import (
     LOG_ZERO,
     NUMERICAL_EPSILON,

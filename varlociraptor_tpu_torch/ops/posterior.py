@@ -30,8 +30,8 @@ import math
 import numpy as np
 import torch
 
-from varlociraptor_tpu.ops.event_program import SPECTRUM_SET, EventSpec
-from varlociraptor_tpu.ops.grid import AFGrid
+from ..ops.event_program import SPECTRUM_SET, EventSpec
+from ..ops.grid import AFGrid
 
 from ..device import resolve_device
 from ..evidence.observation import F

@@ -18,11 +18,15 @@ the JAX package ``varlociraptor_tpu``:
                        timed with CUDA events after a warm-up.
   (a') pairhmm_vs_plain
                        K2 and K3 against their plain torch versions on the
-                       card: 4096 x 160 x 100 and 16384 x 256 x 150 items
-                       (allele x read), the ragged _synth set, and the edge
-                       sets (empty read, N / lowercase, read longer than its
-                       allele, 250-base low-quality reads, the long deletion
-                       chain, alleles over 1024 bases); timed with CUDA events.
+                       card: 4096 x 160 x 100, 16384 x 256 x 150 and the K3
+                       main-path shape (K3_MAIN_SHAPE) items (allele x
+                       read), the ragged _synth set, the edge sets (empty
+                       read, N / lowercase, read longer than its allele,
+                       250-base low-quality reads, the long deletion chain,
+                       alleles over 1024 bases) and K3's tile sets (reads of
+                       1-100 bases in one warp, allele lengths off the rows
+                       per lane, panel widths 32-1056); the three shapes
+                       timed with CUDA events.
   (a'') positional_vs_plain
                        K4 against its plain torch version on the card, on the
                        sets of (a'), with ONT-like base gap rates and hop rates
@@ -45,7 +49,10 @@ the JAX package ``varlociraptor_tpu``:
                        and K3 both launch), a ``--device cpu`` re-preprocess of
                        the first 192 loci of each sample (compared), ``call
                        variants tumor-normal --device cuda`` and
-                       ``filter-calls control-fdr``.
+                       ``filter-calls control-fdr``; the pair-HMM kernels'
+                       device time (events around the library call alone,
+                       and around the whole launch helper) and K3's launches
+                       by panel shape.
   (e) homopolymer      the same at full width with the world's homopolymer
                        profile (runs of 5-12 bases, half of the indels as
                        run-length changes, reads that slip in runs):
@@ -59,8 +66,10 @@ The line before the last lists the kernels ({"kernels": [...]}): K1 with the
 launches counted in phase (c), K2 and K3 with those counted in phase (d)'s
 preprocess steps, K4 with those of phase (e)'s; each with its time, its
 plain version's, and its bound (operations over the float32 peak or bytes
-over the memory rate, whichever is larger, on that kernel's timed inputs);
-no single PyTorch call computes any of them (library_ms null); the last
+over the memory rate, whichever is larger, on that kernel's timed inputs;
+K2-K4 at 16384 x 256 x 150, K3 also at its main-path shape,
+``main_path_shape``); no single PyTorch call computes any of them
+(library_ms null); the last
 line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero, and without a
 CUDA device the script exits non-zero before printing anything.  Scratch
@@ -88,6 +97,16 @@ K4_REPLACES = "varlociraptor_tpu/ops/pallas_pairhmm.py:296"
 # x max(1, |x|): f32 column sums in another order, the D scan in another
 # association; -1e30 (impossible) must match exactly
 K23_TOL = 1e-4
+# phase (a')'s timed pair-HMM shapes (items x allele x read): the bench
+# shape, and the K3 launch shape that carries the most cells on phase (d)'s
+# main path (its median items per launch, the panel width, 100-base reads;
+# from phase (d)'s k3_shapes record)
+BENCH_SET = "b16384_x256_y150"
+K3_MAIN_SHAPE = (4408, 128, 100)
+MAIN_SET = "b{}_x{}_y{}_main".format(*K3_MAIN_SHAPE)
+# phase (d) re-times its first K3 launches warm and saves their inputs
+K3_RERUN = 8
+K3_LAUNCHES_FILE = "k3_main_launches.pt"
 # log gap params (t_mi, t_md, t_ii, t_dd): the default zero-extension model
 # and ONT-like finite extensions (tests/test_pallas_pairhmm.py)
 GAP_ZERO = (-12.785891140783116, -12.186270018233994, -1e30, -1e30)
@@ -402,12 +421,16 @@ def pairhmm_sets():
         pairhmm_edge_items,
         pairhmm_items,
         pairhmm_shape_items,
+        pairhmm_tile_items,
     )
 
+    B, X, Y = K3_MAIN_SHAPE
     sets = [("b4096_x160_y100", *pairhmm_shape_items(4096, 160, 100, seed=1)),
-            ("b16384_x256_y150", *pairhmm_shape_items(16384, 256, 150, seed=2)),
+            (BENCH_SET, *pairhmm_shape_items(16384, 256, 150, seed=2)),
+            (MAIN_SET, *pairhmm_shape_items(B, X, Y, seed=4)),
             ("synth_ragged", *pairhmm_items(21, 3))]
     sets += [(name, *items) for name, items in pairhmm_edge_items().items()]
+    sets += [(name, *items) for name, items in pairhmm_tile_items().items()]
     return sets
 
 
@@ -452,7 +475,7 @@ def phase_pairhmm_vs_plain(timer=cuda_ms):
 
     out = {"phase": "pairhmm_vs_plain", "tol_rel": K23_TOL, "cases": []}
     worst = {"exact": 0.0, "general": 0.0}
-    bench = {}
+    bench, main = {}, {}
     for name, alleles, reads, quals in pairhmm_sets():
         for kind, gap in (("exact", GAP_ZERO), ("general", GAP_ONT)):
             args, _, _, _ = phc.pack_exact_batch(alleles, reads, quals, gap)
@@ -461,12 +484,16 @@ def phase_pairhmm_vs_plain(timer=cuda_ms):
             dev = phc.to_device(args, "cuda")
             case = pairhmm_case(kind, name, getattr(phc, f"{kind}_forward"),
                                 getattr(phc, f"{kind}_forward_reference"), dev, timer)
+            if kind == "general":
+                case["tile"] = list(phc.general_tile(case["Xp"]))
             worst[kind] = max(worst[kind], case["max_abs_err"])
-            if "ms" in case:
+            if name == BENCH_SET:
                 bench[kind] = case
+            elif name == MAIN_SET:
+                main[kind] = case
             out["cases"].append(case)
     out["max_abs_err"] = worst
-    return out, bench
+    return out, bench, main
 
 
 def phase_positional_vs_plain(timer=cuda_ms):
@@ -483,45 +510,111 @@ def phase_positional_vs_plain(timer=cuda_ms):
         case = pairhmm_case("positional", name, phc.positional_forward,
                             phc.positional_forward_reference, dev, timer)
         worst = max(worst, case["max_abs_err"])
-        if "ms" in case:
+        if name == BENCH_SET:
             bench = case
         out["cases"].append(case)
     out["max_abs_err"] = worst
     return out, bench
 
 
+def k3_shape_record(launches):
+    """K3's launches by panel shape (Xp x Yp): launches, items, the cells
+    the items need (sum of alen x rlen), the allele rows the kernel computes
+    (B x the tile's rows), kernel and around-launch ms; the median items per
+    launch; and the (B, Xp, Yp) of the shape that carries the most cells
+    (B its median)."""
+    import statistics
+
+    by = {}
+    for rec in launches:
+        B, Xp = rec["allele"].shape
+        s = by.setdefault(f"{Xp}x{rec['read'].shape[1]}", {
+            "Xp": Xp, "Yp": rec["read"].shape[1], "tile": list(rec["tile"]), "launches": 0,
+            "items": 0, "B": [], "cells": 0, "rows_computed": 0, "kernel_ms": 0.0,
+            "around_ms": 0.0})
+        s["launches"] += 1
+        s["items"] += B
+        s["B"].append(B)
+        s["cells"] += int((rec["alen"].double() * rec["rlen"].double()).sum().item())
+        s["alen_sum"] = s.get("alen_sum", 0) + int(rec["alen"].sum().item())
+        s["rlen_sum"] = s.get("rlen_sum", 0) + int(rec["rlen"].sum().item())
+        s["rows_computed"] += B * (rec["tile"][0] * rec["tile"][1] if Xp <= 1024 else Xp)
+        s["kernel_ms"] += rec["kernel_ms"]
+        s["around_ms"] += rec["around_ms"]
+    for s in by.values():
+        s["median_B"] = statistics.median(s.pop("B"))
+        s["mean_alen"] = s.pop("alen_sum") / s["items"]
+        s["mean_rlen"] = s.pop("rlen_sum") / s["items"]
+    top = max(by.values(), key=lambda s: s["cells"], default=None)
+    return {
+        "by_shape": by,
+        "median_items_per_launch": statistics.median([r["allele"].shape[0] for r in launches])
+        if launches else 0,
+        "most_cells": None if top is None else [top["median_B"], top["Xp"], top["Yp"]],
+    }
+
+
 @contextlib.contextmanager
 def timed_pairhmm():
-    """CUDA-event device time and work items of every K2 / K3 / K4 launch
-    inside the block (events around the kernel launch helper; counts
-    untouched)."""
+    """Device time and work items of every K2 / K3 / K4 launch inside the
+    block, from CUDA events recorded through ``pairhmm_column.launch_hook``
+    (counts untouched): "ms" brackets the library call alone, "around_ms"
+    the whole launch helper with its host work; K3's launches also by shape
+    (:func:`k3_shape_record`)."""
     import torch
 
     from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
-    launch = phc._launch
-    events = {"vlt_pairhmm_exact": [], "vlt_pairhmm_general": [],
-              "vlt_pairhmm_positional": []}
-    items = dict.fromkeys(events, 0)
+    launches = []
 
-    def timed(fn_name, *args):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = launch(fn_name, *args)
-        b.record()
-        events[fn_name].append((a, b))
-        items[fn_name] += args[0].shape[0]
-        return out
+    def hook(stage, fn_name, allele, read, tensors, tile):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if stage == "enter":
+            launches.append({"fn": fn_name, "allele": allele, "read": read,
+                             "alen": tensors[1], "rlen": tensors[2], "tile": tile,
+                             "args": (allele, read, *tensors), "events": [ev]})
+        else:
+            launches[-1]["events"].append(ev)
 
-    phc._launch = timed
+    phc.launch_hook = hook
     stats = {}
     try:
         yield stats
     finally:
-        phc._launch = launch
+        phc.launch_hook = None
         torch.cuda.synchronize()
-        for k, v in events.items():
-            stats[k] = {"ms": sum(a.elapsed_time(b) for a, b in v), "forwards": items[k]}
+        launches = [r for r in launches if len(r["events"]) == 3]  # B = 0 launches nothing
+        for rec in launches:
+            enter, call, ret = rec.pop("events")
+            rec["kernel_ms"] = call.elapsed_time(ret)
+            rec["around_ms"] = enter.elapsed_time(ret)
+        for fn in ("vlt_pairhmm_exact", "vlt_pairhmm_general", "vlt_pairhmm_positional"):
+            mine = [r for r in launches if r["fn"] == fn]
+            stats[fn] = {"ms": sum(r["kernel_ms"] for r in mine),
+                         "around_ms": sum(r["around_ms"] for r in mine),
+                         "forwards": sum(r["allele"].shape[0] for r in mine)}
+        k3 = [r for r in launches if r["fn"] == "vlt_pairhmm_general"]
+        stats["k3_shapes"] = k3_shape_record(k3)
+        stats["k3_launches"] = k3[:K3_RERUN]
+
+
+def k3_warm_rerun(records, path):
+    """The first main-path K3 launches again, each back to back after a
+    warm-up (through the launch helper, so not counted), beside their
+    in-path kernel time: how much of that is the card starting from idle.
+    Their inputs are saved to ``path`` (for scripts/torch_k3_variants.py
+    --real)."""
+    import torch
+
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    warm = [cuda_ms(lambda: phc._launch("vlt_pairhmm_general", *r["args"], tile=r["tile"]), 10)
+            for r in records]
+    torch.save([[t.cpu() for t in r["args"]] for r in records], path)
+    return {"launches": len(records), "items": sum(r["allele"].shape[0] for r in records),
+            "in_path_kernel_ms": sum(r["kernel_ms"] for r in records),
+            "warm_kernel_ms": sum(warm)}
 
 
 def head_of_vcf(src, dst, n):
@@ -648,6 +741,7 @@ def pairhmm_times(res, hmm_stats, pre_s):
     names = {"K2": "vlt_pairhmm_exact", "K3": "vlt_pairhmm_general",
              "K4": "vlt_pairhmm_positional"}
     res["pairhmm_device_ms"] = {k: hmm_stats[v]["ms"] for k, v in names.items()}
+    res["pairhmm_around_launch_ms"] = {k: hmm_stats[v]["around_ms"] for k, v in names.items()}
     res["pairhmm_forwards"] = {k: hmm_stats[v]["forwards"] for k, v in names.items()}
     res["pairhmm_device_share_of_preprocess"] = (
         sum(res["pairhmm_device_ms"].values()) / 1e3 / pre_s)
@@ -722,6 +816,8 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
     res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
     pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"]
                   + secs["preprocess_normal_other_model"])
+    res["k3_shapes"] = hmm_stats["k3_shapes"]
+    res["k3_warm_rerun"] = k3_warm_rerun(hmm_stats["k3_launches"], work / K3_LAUNCHES_FILE)
 
     # 3. the first n_cpu loci again on the CPU (plain K2 / K3), same chunk
     res["cuda_vs_cpu"] = cpu_recheck(w, work, props_path, obs, secs, n_cpu)
@@ -818,7 +914,7 @@ def main():
     _, engine = tumor_normal_engine(resolution=0.01, purity=0.75, device="cuda")
     a, bench = phase_kernel_vs_plain(engine)
     emit(a)
-    a2, hmm_bench = phase_pairhmm_vs_plain()
+    a2, hmm_bench, hmm_main = phase_pairhmm_vs_plain()
     emit(a2)
     a3, k4_bench = phase_positional_vs_plain()
     emit(a3)
@@ -839,6 +935,7 @@ def main():
         raise PhaseError(f"the port tried to import {repo_attempts or 'jax'}")
     # no single PyTorch call computes any of the four functions
     timing = lambda case: {k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
+    k3_main = hmm_main["general"]
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -848,6 +945,9 @@ def main():
         "replaces": replaces, "launches": hmm_launches[kind],
         "max_abs_err": a2["max_abs_err"][kind], **timing(hmm_bench[kind]),
         "library_ms": None,
+        **({"main_path_shape": {"B": k3_main["B"], "Xp": k3_main["Xp"], "Yp": k3_main["Yp"],
+                                "tile": k3_main["tile"], **timing(k3_main)}}
+           if kind == "general" else {}),
     } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))] + [{
         "name": "pairhmm_positional", "route": "cuda", "source": K23_SOURCE,
         "replaces": K4_REPLACES, "launches": hp_launches["positional"],

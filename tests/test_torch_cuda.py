@@ -22,11 +22,13 @@ import torch
 
 from varlociraptor_tpu_torch.bench_utils import (
     K1_EDGE_CASES,
+    PAIRHMM_TILE_WIDTHS,
     engine_inputs,
     k1_edge_rows,
     pairhmm_edge_items,
     pairhmm_items,
     pairhmm_shape_items,
+    pairhmm_tile_items,
     tumor_normal_engine,
 )
 from varlociraptor_tpu_torch.compare import compare_outputs
@@ -170,6 +172,51 @@ def test_pairhmm_kernel_matches_plain(card, general, name):
     assert np.array_equal(items == -1e30, cpu == -1e30)
     ok = cpu > -1e30
     assert np.all(np.abs(items[ok] - cpu[ok]) <= PAIRHMM_TOL * np.maximum(1, np.abs(cpu[ok])))
+
+
+def _k3_against_plain(alleles, reads, quals, card, tile=None):
+    """K3 at ``tile`` (default: general_tile) against its plain version on
+    the card: the same finiteness and -1e30 items, PAIRHMM_TOL."""
+    args, n, _, _ = phc.pack_exact_batch(alleles, reads, quals, GAP_ONT)
+    dev_args = phc.to_device(args[:5] + (phc.general_coef(GAP_ONT),), card)
+    got = phc.general_forward(*dev_args, tile=tile)
+    torch.cuda.synchronize()
+    ref = phc.general_forward_reference(*dev_args)
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    assert g.shape == (n,)
+    assert np.array_equal(np.isfinite(g), np.isfinite(r))
+    assert np.array_equal(g == -1e30, r == -1e30)
+    ok = r > -1e30
+    err = np.abs(g[ok] - r[ok]) / np.maximum(1.0, np.abs(r[ok]))
+    assert np.all(err <= PAIRHMM_TOL), (tile, err.max())
+
+
+@pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
+def test_k3_tile_sets_match_plain(card, name):
+    """K3's tiled layout on reads of 1, 4, 37 and 100 bases in one warp,
+    allele lengths off the rows per lane, and panel widths 32 to 1056."""
+    _k3_against_plain(*pairhmm_tile_items()[name], card)
+
+
+@pytest.mark.parametrize("tile", phc.GENERAL_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_k3_every_tile_matches_plain(card, tile):
+    """Each instantiated tile, forced through the C entry, on the widest
+    tile set it covers and on the mixed read lengths where it covers them."""
+    sets = pairhmm_tile_items()
+    widths = [X for X in PAIRHMM_TILE_WIDTHS if X <= tile[0] * tile[1]]
+    _k3_against_plain(*sets[f"width_{max(widths)}"], card, tile=tile)
+    if tile[0] * tile[1] >= 128:
+        _k3_against_plain(*sets["mixed_rlen_in_warp"], card, tile=tile)
+        _k3_against_plain(*sets["alen_not_multiple_of_rows"], card, tile=tile)
+
+
+def test_k3_entry_refuses_a_tile_that_does_not_take_the_panel(card):
+    alleles, reads, quals = pairhmm_tile_items()["width_128"]
+    args, *_ = phc.pack_exact_batch(alleles, reads, quals, GAP_ONT)
+    dev_args = phc.to_device(args[:5] + (phc.general_coef(GAP_ONT),), card)
+    for tile in ((8, 8), (5, 32)):  # covers 64 rows; no such instantiation
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            phc._launch("vlt_pairhmm_general", *dev_args, tile=tile)
 
 
 def test_pairhmm_wrapper_checks_its_inputs(card):

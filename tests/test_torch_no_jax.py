@@ -131,7 +131,8 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 _JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
 _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(import|from)\s+varlociraptor_tpu(\.|\s|$)", re.M)
 _PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + [
-    "chip_smoke.py", "scripts/torch_k1_variants.py", "scripts/torch_e2e_ab.py"]
+    "chip_smoke.py", "scripts/torch_k1_variants.py", "scripts/torch_k3_variants.py",
+    "scripts/torch_e2e_ab.py"]
 
 
 @pytest.mark.parametrize("path", _PORT_FILES)

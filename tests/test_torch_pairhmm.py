@@ -33,7 +33,12 @@ from varlociraptor_tpu.estimation.alignment_properties import GapParams as JaxGa
 from varlociraptor_tpu.estimation.alignment_properties import HopParams as JaxHopParams
 from varlociraptor_tpu.ops.pairhmm import BatchedPairHMM as JaxPairHMM
 from varlociraptor_tpu.ops.pairhmm import NEG_INF, _forward_hp_impl, _forward_impl
-from varlociraptor_tpu_torch.bench_utils import pairhmm_edge_items, pairhmm_items
+from varlociraptor_tpu_torch.bench_utils import (
+    pairhmm_edge_items,
+    pairhmm_items,
+    pairhmm_shape_items,
+    pairhmm_tile_items,
+)
 from varlociraptor_tpu_torch.convert import pairhmm_from_jax
 from varlociraptor_tpu_torch.estimation.alignment_properties import GapParams, HopParams
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc
@@ -158,6 +163,80 @@ def test_general_coef_matches_jax(monkeypatch):
     alleles, reads, quals = pairhmm_items(4, 3)
     jpp.pallas_general_forward(alleles, reads, quals, GAP_ONT)
     assert phc.general_coef(GAP_ONT).tobytes() == seen["coef"][0].tobytes()
+
+
+def _parent_rows(Xp):
+    """Allele rows the one-warp-per-item layout (K2's and K4's) computes: 32
+    lanes x the smallest power of two >= Xp/32, at least 2."""
+    r = 2
+    while r < -(-Xp // 32):
+        r *= 2
+    return 32 * r
+
+
+@pytest.mark.parametrize("Xp", [1, 8, 31, 32, 33, 64, 65, 96, 100, 128, 129, 160, 192,
+                                224, 256, 300, 384, 512, 513, 768, 1000, 1024])
+def test_general_tile_fits_the_panel(Xp):
+    """K3's tile covers the panel, its lanes divide a warp, and it pads no
+    more rows than the one-warp-per-item layout did (at most one lane's
+    rows more than Xp where a tile of that size exists)."""
+    lanes, rows = phc.general_tile(Xp)
+    assert (lanes, rows) in phc.GENERAL_TILES
+    assert 32 % lanes == 0 and lanes >= 8
+    assert Xp <= lanes * rows <= _parent_rows(Xp)
+    # 16 lanes wherever a 16-lane tile pads no more
+    if any(t[0] == 16 and t[0] * t[1] == lanes * rows for t in phc.GENERAL_TILES):
+        assert lanes == 16
+
+
+def test_general_tile_every_width():
+    for Xp in range(1, 1025):
+        lanes, rows = phc.general_tile(Xp)
+        assert (lanes, rows) in phc.GENERAL_TILES and Xp <= lanes * rows <= _parent_rows(Xp)
+    # the packed widths (multiples of 32) of the preprocess windows: exact
+    for Xp in (32, 64, 96, 128, 160, 192, 256):
+        assert np.prod(phc.general_tile(Xp)) == Xp
+    assert phc.general_tile(128) == (16, 8)  # the main path's panel
+    assert phc.general_tile(1056) == phc.general_tile(32 * 32 * 32) == (32, 32)
+    # the limits the variant script's policies use
+    assert phc.general_tile(128, lanes=8) == (8, 16)
+    assert phc.general_tile(160, max_rows=8) == (32, 5)
+
+
+def test_general_tiles_are_the_kernel_instantiations():
+    """GENERAL_TILES lists exactly the (lanes, rows) pairs the CUDA source
+    instantiates (VLT_GENERAL_TILES), so a picked tile always launches."""
+    import re
+    from pathlib import Path
+
+    src = (Path(phc.__file__).parent.parent / "csrc" / "pairhmm_column.cu").read_text()
+    block = re.search(r"#define VLT_GENERAL_TILES\(X\)(.*?)\n\n", src, re.S).group(1)
+    pairs = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", block))
+    assert pairs == phc.GENERAL_TILES
+
+
+@pytest.mark.parametrize("tile", [(8, 4), (16, 6), (7, 32), (32, 32)])
+def test_general_forward_refuses_a_tile_that_does_not_take_the_panel(tile):
+    alleles, reads, quals = pairhmm_shape_items(3, 300, 50)  # Xp = 320
+    args, *_ = phc.pack_exact_batch(alleles, reads, quals, GAP_ONT)
+    args = phc.to_device(args[:5] + (phc.general_coef(GAP_ONT),), "cpu")
+    if tile == (32, 32):
+        assert np.isfinite(phc.general_forward(*args, tile=tile).numpy()).all()
+        return
+    with pytest.raises(ValueError, match="does not take"):
+        phc.general_forward(*args, tile=tile)
+
+
+@pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
+def test_plain_k3_matches_jax_on_the_tile_sets(name):
+    """The sets that K3's tiled layout is checked on, on the card, against
+    its plain version: here the plain version against the JAX Pallas kernel
+    (interpret mode)."""
+    alleles, reads, quals = pairhmm_tile_items()[name]
+    got = phc.forward_items(alleles, reads, quals, GAP_ONT, "cpu", True)
+    pallas = jpp.pallas_general_forward(alleles, reads, quals, GAP_ONT, interpret=True)
+    assert np.array_equal(got <= -1e29, pallas <= -1e29)
+    assert _rel(got, pallas) < TOL, _rel(got, pallas)
 
 
 def _spy(monkeypatch):

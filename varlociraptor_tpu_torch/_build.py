@@ -113,9 +113,11 @@ def load():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.vlt_ll_classes.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
             lib.vlt_ll_classes.restype = i
-            for fn in (lib.vlt_pairhmm_exact, lib.vlt_pairhmm_general):
-                fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
-                fn.restype = i
+            lib.vlt_pairhmm_exact.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+            lib.vlt_pairhmm_exact.restype = i
+            # K3: B, Xp, Yp, then its tile (lanes, rows)
+            lib.vlt_pairhmm_general.argtypes = [p] * 7 + [i] * 5 + [p]
+            lib.vlt_pairhmm_general.restype = i
             # K4: the [7] coef gives way to the four gap panels io, ie, do, de
             lib.vlt_pairhmm_positional.argtypes = [p] * 10 + [i, i, i, p]
             lib.vlt_pairhmm_positional.restype = i

@@ -264,6 +264,29 @@ def pairhmm_edge_items(seed=0):
     return out
 
 
+PAIRHMM_TILE_WIDTHS = (32, 64, 96, 128, 160, 256, 1024, 1056)
+
+
+def pairhmm_tile_items(seed=0):
+    """Sets for K3's tiled layout (several items per warp), keyed by name,
+    each (alleles, reads, quals): reads of 1, 4, 37 and 100 bases side by
+    side; allele lengths that are no multiple of the rows per lane; and one
+    set per panel width of ``PAIRHMM_TILE_WIDTHS`` (alleles of that length
+    and shorter, the last width over 1024 rows)."""
+    out = {}
+    a, r, q = pairhmm_shape_items(64, 120, 100, seed=seed)
+    lens = [1, 4, 37, 100] * 16
+    out["mixed_rlen_in_warp"] = (a, [x[:n] for x, n in zip(r, lens)],
+                                 [x[:n] for x, n in zip(q, lens)])
+    out["alen_not_multiple_of_rows"] = tuple(map(list, zip(*(
+        [x[0] for x in pairhmm_shape_items(1, n, min(n, 50), seed=seed + k)]
+        for k, n in enumerate([61, 77, 99, 127, 13, 101] * 8)))))
+    for X in PAIRHMM_TILE_WIDTHS:
+        a, r, q = pairhmm_shape_items(40, X, min(X, 100), seed=seed + X)
+        out[f"width_{X}"] = ([x[: X - 7 * (k % 5)] for k, x in enumerate(a)], r, q)
+    return out
+
+
 def pairhmm_shape_items(B, X, Y, seed=0, err=0.01):
     """B work items at one shape: random alleles of X bases, reads of Y bases
     cut from them at a random offset with ``err`` substitutions, PHRED

@@ -53,6 +53,18 @@
 // first) in registers and broadcasts io / ie with the read bases.  The
 // column loop stops at the item's own rlen, which gives what the TPU
 // kernel's frozen output gives.
+//
+// K3 up to Xp = 1024 has a layout of its own (pairhmm_general_tiled_kernel):
+// L = 8, 16 or 32 lanes per item and 32/L items per warp, R rows per lane,
+// the tile (L, R) chosen by the caller (ops/pairhmm_column.py:general_tile)
+// so that L*R covers Xp with little padding and R is large: the per-column
+// cost (shuffles, the group maximum, the D scan's carries, log2 L steps
+// each) is shared by more rows.  Every shuffle has width L, so the items of
+// a warp stay apart; the warp runs to its longest read and each item keeps
+// its sums at its own rlen.  What is the same for every column (allele
+// bytes, the rows' validity, t_dd^r, the scan factors) is set once per item,
+// what is the same for every row of a column once per column.  K3 over 1024
+// rows keeps the multi-warp layout above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -484,6 +496,221 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3 at L lanes per item (Xp <= 1024): 32/L items share a warp
+// ---------------------------------------------------------------------------
+
+// Reductions, shifts and broadcasts over the L lanes of one item: the
+// `width` argument keeps every shuffle inside its group, so the groups of a
+// warp never see each other's values.
+template <int L>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o, L));
+  return v;
+}
+
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o, L);
+  return v;
+}
+
+// The value of the group's lane to the left, `edge` for its first lane.
+template <int L>
+__device__ __forceinline__ float group_left(float mine, int g, float edge) {
+  const float v = __shfl_up_sync(FULL, mine, 1, L);
+  return g == 0 ? edge : v;
+}
+
+// Read base and miscall of column j (1-based) of the group's item: every L
+// columns each lane loads one column, then the group broadcasts them.
+template <int L>
+struct GroupCursor {
+  const uint8_t* read;
+  const uint8_t* qual;
+  int Yp;
+  int base = 0;
+  float mis = 0.0f;
+
+  __device__ __forceinline__ void get(int j, int g, int& rj, float& mj) {
+    const int idx = j - 1;
+    if ((idx & (L - 1)) == 0) {
+      const int c = idx + g;
+      base = c < Yp ? (read[c] & 0xDF) : 0;
+      mis = expf((c < Yp ? (float)qual[c] : 0.0f) * NEG_LN10_10);
+    }
+    rj = __shfl_sync(FULL, base, idx & (L - 1), L);
+    mj = __shfl_sync(FULL, mis, idx & (L - 1), L);
+  }
+};
+
+// One lane of a K3 item at L lanes x R rows: allele rows p0 .. p0+R-1, the
+// item's constants and what the lane needs of them, and the column step.
+// Everything that does not change along the read is set once per item: the
+// upper-cased allele bytes, the rows' validity as a weight (0 past alen),
+// t_dd^r and the Kogge-Stone carry factors.  Per column, the emission's two
+// candidates and mj*t_mi, mj*t_ii are taken once for all rows; column 1 is
+// its own instantiation, so the free-start terms leave the loop.
+template <int L, int R>
+struct GeneralTile {
+  static constexpr int LOG_L = L == 8 ? 3 : (L == 16 ? 4 : 5);
+  float t_mm, t_dm, t_im, t_mi, t_md, t_ii, t_dd;
+  float ks[LOG_L];  // factor of the carry at Kogge-Stone step k: t_dd^(R*2^k)
+  float tpow[R];    // t_dd^r
+  float w[R];       // 1 on the item's allele rows, 0 past alen
+  int al[R];        // allele bytes, upper case
+  int g;
+  float m[R], ip[R], d[R];  // M, I, D of the previous column
+  float i0 = 0.0f, scale = 0.0f;  // i0: I before allele position 1
+  float fin_m = 0.0f, fin_i = 0.0f, fin_i0 = 0.0f, fin_scale = 0.0f;  // at j = rlen
+
+  __device__ __forceinline__ void init(const float* coef, const uint8_t* row, int Xp,
+                                       int alen, int lane) {
+    t_mm = coef[0], t_dm = coef[1], t_im = coef[2], t_mi = coef[3];
+    t_md = coef[4], t_ii = coef[5], t_dd = coef[6];
+    g = lane;
+    const int p0 = g * R;
+    float a = powf(t_dd, (float)R);
+#pragma unroll
+    for (int k = 0; k < LOG_L; ++k) {
+      ks[k] = a;
+      a *= a;
+    }
+    tpow[0] = 1.0f;
+#pragma unroll
+    for (int r = 1; r < R; ++r) tpow[r] = tpow[r - 1] * t_dd;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = p0 + r;
+      al[r] = p < Xp ? (row[p] & 0xDF) : 0;
+      w[r] = p < alen ? 1.0f : 0.0f;
+      m[r] = ip[r] = d[r] = 0.0f;
+    }
+  }
+
+  template <bool FIRST>
+  __device__ __forceinline__ void column(int j, int rlen, int rj, float mj) {
+    const float em_match = 1.0f - mj;
+    const float em_mis = rj == 'N' ? 0.25f : mj * (1.0f / 3.0f);
+    const float mi = mj * t_mi, ii = mj * t_ii;
+    float mx[R];
+    if (FIRST) {
+      // nothing before column 1: M = e_m (free start), I = mj*t_mi
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        m[r] = w[r] * (al[r] == rj ? em_match : em_mis);
+        ip[r] = w[r] * mi;
+        mx[r] = fmaxf(m[r], ip[r]);
+      }
+    } else {
+      const float um = group_left<L>(m[R - 1], g, 0.0f);
+      const float ud = group_left<L>(d[R - 1], g, 0.0f);
+      const float ui = group_left<L>(ip[R - 1], g, i0);
+      // descending, so that row r-1 still holds column j-1
+#pragma unroll
+      for (int r = R - 1; r >= 0; --r) {
+        const float ms = r >= 1 ? m[r > 0 ? r - 1 : 0] : um;
+        const float ds = r >= 1 ? d[r > 0 ? r - 1 : 0] : ud;
+        const float is = r >= 1 ? ip[r > 0 ? r - 1 : 0] : ui;
+        const float e = w[r] * (al[r] == rj ? em_match : em_mis);
+        const float mc = e * (t_mm * ms + t_dm * ds + t_im * is);
+        const float ic = mi * m[r] + ii * ip[r];
+        m[r] = mc;
+        ip[r] = ic;
+        mx[r] = fmaxf(mc, ic);
+      }
+    }
+    float i0c = FIRST ? mi : ii * i0;
+#pragma unroll
+    for (int s = 1; s < R; s *= 2)
+#pragma unroll
+      for (int r = 0; r + s < R; r += 2 * s) mx[r] = fmaxf(mx[r], mx[r + s]);
+    const float cmax = group_max<L>(mx[0]);
+    if (cmax > 0.0f && cmax < RESCALE_THRESH) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        m[r] *= RESCALE;
+        ip[r] *= RESCALE;
+      }
+      i0c *= RESCALE;
+      scale += LOG_RESCALE;
+    }
+
+    // D of this column: E(k) = D(k+1) = t_md*M(k) + t_dd*E(k-1), scanned in
+    // the lane from a zero carry, then E(p0-1) carried in from the lanes to
+    // the left
+    float e_loc[R];
+    e_loc[0] = t_md * m[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r) e_loc[r] = t_md * m[r] + t_dd * e_loc[r - 1];
+    float incl = e_loc[R - 1];
+#pragma unroll
+    for (int k = 0; k < LOG_L; ++k) {
+      const float v = __shfl_up_sync(FULL, incl, 1 << k, L);
+      if (g >= (1 << k)) incl += ks[k] * v;
+    }
+    const float c_in = group_left<L>(incl, g, 0.0f);  // E(p0-1)
+    d[0] = c_in;
+#pragma unroll
+    for (int r = 1; r < R; ++r) d[r] = e_loc[r - 1] + tpow[r] * c_in;
+
+    if (j == rlen) {  // the item's last column; the group sums after the loop
+      fin_m = fin_i = 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        fin_m += m[r];
+        fin_i += ip[r];
+      }
+      fin_i0 = i0c;
+      fin_scale = scale;
+    }
+    i0 = i0c;
+  }
+};
+
+// K3 for Xp <= L*R <= 1024: L lanes per item, 32/L items per warp, one warp
+// per block.  The warp runs to its longest read; each item's sums are taken
+// at its own rlen and written after the loop.  A group past B repeats the
+// last item and writes nothing.
+template <int L, int R>
+__global__ void __launch_bounds__(32)
+pairhmm_general_tiled_kernel(const uint8_t* __restrict__ allele,
+                             const uint8_t* __restrict__ read,
+                             const uint8_t* __restrict__ qual,
+                             const int* __restrict__ alen_p,
+                             const int* __restrict__ rlen_p,
+                             const float* __restrict__ coef,
+                             float* __restrict__ out, int B, int Xp, int Yp) {
+  const int g = threadIdx.x & (L - 1);
+  const int slot = blockIdx.x * (32 / L) + threadIdx.x / L;
+  const long long item = min(slot, B - 1);
+  GeneralTile<L, R> t;
+  t.init(coef, allele + item * Xp, Xp, alen_p[item], g);
+  const int rlen = min(max(rlen_p[item], 1), Yp);
+  const int jmax = __reduce_max_sync(FULL, rlen);
+  GroupCursor<L> rc{read + item * Yp, qual + item * Yp, Yp};
+  int rj;
+  float mj;
+  rc.get(1, g, rj, mj);
+  t.template column<true>(1, rlen, rj, mj);
+  for (int j = 2; j <= jmax; ++j) {
+    rc.get(j, g, rj, mj);
+    t.template column<false>(j, rlen, rj, mj);
+  }
+  const float m_sum = group_sum<L>(t.fin_m);
+  const float i_sum = group_sum<L>(t.fin_i);
+  const float fin = m_sum + i_sum + t.fin_i0;
+  if (g == 0 && slot < B) out[item] = (fin > 0.0f ? logf(fin) : EMPTY) - t.fin_scale;
+}
+
+// K3's tiles (lanes per item, rows per lane) of the kernel above;
+// ops/pairhmm_column.py:GENERAL_TILES lists the same pairs.
+#define VLT_GENERAL_TILES(X)                                                 \
+  X(8, 4) X(8, 8) X(8, 12) X(8, 16) X(16, 6) X(16, 8) X(16, 10) X(16, 12)    \
+  X(16, 16) X(32, 5) X(32, 6) X(32, 8) X(32, 12) X(32, 16) X(32, 24) X(32, 32)
+
 // Rows per lane: the smallest power of two >= per_lane (at least 2, for
 // the i-2 shift).
 int pick_r(int per_lane) {
@@ -499,7 +726,7 @@ void launch_r(dim3 grid, dim3 block, cudaStream_t st, const uint8_t* allele,
               const uint8_t* read, const uint8_t* qual, const int* alen,
               const int* rlen, const float* coef, const GapPanels& gp,
               float* out, int B, int Xp, int Yp, int W) {
-  if (K == EXACT)
+  if constexpr (K == EXACT)
     pairhmm_exact_kernel<R, MULTI><<<grid, block, 0, st>>>(
         allele, read, qual, alen, rlen, coef, out, B, Xp, Yp, W);
   else
@@ -537,6 +764,36 @@ int launch(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
   return (int)cudaGetLastError();
 }
 
+// K3: the tile (lanes, rows) is the caller's; Xp > 1024 takes the
+// multi-warp kernel above, as tile (32, 32).
+int launch_general(const uint8_t* allele, const uint8_t* read,
+                   const uint8_t* qual, const int* alen, const int* rlen,
+                   const float* coef, float* out, int B, int Xp, int Yp,
+                   int lanes, int rows, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (Xp <= 0 || Yp <= 0 || Xp > MAX_WARPS * 32 * 32)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (Xp > 32 * 32) {
+    if (lanes != 32 || rows != 32) return (int)cudaErrorInvalidValue;
+    const int W = (Xp + 32 * 32 - 1) / (32 * 32);
+    launch_r<GENERAL, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual, alen,
+                                rlen, coef, GapPanels{}, out, B, Xp, Yp, W);
+    return (int)cudaGetLastError();
+  }
+  if (lanes * rows < Xp) return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + 32 / lanes - 1) / (32 / lanes));
+#define VLT_TILE(l, r)                                                      \
+  if (lanes == l && rows == r) {                                            \
+    pairhmm_general_tiled_kernel<l, r><<<grid, 32, 0, st>>>(                \
+        allele, read, qual, alen, rlen, coef, out, B, Xp, Yp);              \
+    return (int)cudaGetLastError();                                         \
+  }
+  VLT_GENERAL_TILES(VLT_TILE)
+#undef VLT_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C entries for ctypes.  They launch on `stream` and return
@@ -544,7 +801,9 @@ int launch(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
 // and qual [B, Yp] uint8 row-major; alen, rlen [B] int32; coef [4] (K2:
 // t_mm, t_dm*t_md, t_im*t_mi, t_mi) or [7] (K3: t_mm, t_dm, t_im, t_mi, t_md,
 // t_ii, t_dd) float32; K4: io, ie [B, Yp] and do, de [B, Xp] float32
-// LINEAR; out [B] float32.
+// LINEAR; out [B] float32.  K3 also takes its tile: lanes per item and allele
+// rows per lane, one of VLT_GENERAL_TILES with lanes*rows >= Xp, or (32, 32)
+// for Xp > 1024.
 extern "C" int vlt_pairhmm_exact(const uint8_t* allele, const uint8_t* read,
                                  const uint8_t* qual, const int* alen,
                                  const int* rlen, const float* coef, float* out,
@@ -557,9 +816,9 @@ extern "C" int vlt_pairhmm_general(const uint8_t* allele, const uint8_t* read,
                                    const uint8_t* qual, const int* alen,
                                    const int* rlen, const float* coef,
                                    float* out, int B, int Xp, int Yp,
-                                   void* stream) {
-  return launch<GENERAL>(allele, read, qual, alen, rlen, coef, GapPanels{},
-                         out, B, Xp, Yp, stream);
+                                   int lanes, int rows, void* stream) {
+  return launch_general(allele, read, qual, alen, rlen, coef, out, B, Xp, Yp,
+                        lanes, rows, stream);
 }
 
 extern "C" int vlt_pairhmm_positional(const uint8_t* allele,

@@ -13,7 +13,9 @@ terms per cell:
 
 K3 (``general_forward``): constant finite extensions, three states M/I/D.
 Within a column D(i) = t_md*M(i-1) + t_dd*D(i-1) is a first-order linear
-recurrence over i (a prefix scan).
+recurrence over i (a prefix scan).  On the card it runs at a tile (lanes
+per item, allele rows per lane) that :func:`general_tile` picks from the
+panel width.
 
 K4 (``positional_forward``): K3 with per-position gap probabilities, the
 homopolymer mode.  The insertion open / extend of read base j (io_j, ie_j)
@@ -51,6 +53,28 @@ EMPTY = -1e30  # result of an empty read (and of a read with no alignment)
 # largest allele panel the kernels take: 32 warps x 32 lanes x 32 positions
 MAX_XP = 32 * 32 * 32
 _LN10_10 = math.log(10.0) / 10.0
+# K3's tiles up to Xp = 1024, (lanes per item, allele rows per lane), as
+# csrc/pairhmm_column.cu:VLT_GENERAL_TILES instantiates them; wider panels
+# take the multi-warp kernel, tile (32, 32)
+GENERAL_TILES = ((8, 4), (8, 8), (8, 12), (8, 16), (16, 6), (16, 8), (16, 10), (16, 12),
+                 (16, 16), (32, 5), (32, 6), (32, 8), (32, 12), (32, 16), (32, 24), (32, 32))
+# called around every kernel launch when set (see _launch)
+launch_hook = None
+
+
+def general_tile(Xp, max_rows=None, lanes=None):
+    """K3's tile (lanes, rows) for an allele panel of Xp rows: of the tiles
+    that cover Xp (with at most ``max_rows`` rows and ``lanes`` lanes, if
+    given; else of all), the one with the fewest padded rows, then 16
+    lanes, then the fewest.  On an H100, 16 lanes beat 8 lanes with twice
+    the rows (more warps hide the column chain's latency) and 32 lanes with
+    half the rows (the per-column shuffles take log2(lanes) steps) at Xp
+    128, 160 and 256 (PERF.md, PR 6).  (32, 32) over 1024 rows."""
+    if Xp > 32 * 32:
+        return (32, 32)
+    fits = [t for t in GENERAL_TILES if t[0] * t[1] >= Xp]
+    pick = [t for t in fits if t[1] <= (max_rows or t[1]) and t[0] == (lanes or t[0])]
+    return min(pick or fits, key=lambda t: (t[0] * t[1], t[0] != 16, t[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -380,11 +404,18 @@ def _check(name, allele, read, qual, alen, rlen, coef=None, n_coef=None, gaps=No
         )
 
 
-def _launch(fn_name, allele, read, *tensors):
+def _launch(fn_name, allele, read, *tensors, tile=()):
     """Launch ``fn_name`` of the kernel library on the current stream with
-    the device pointers of (allele, read, *tensors, out) and B, Xp, Yp."""
+    the device pointers of (allele, read, *tensors, out), B, Xp, Yp and the
+    ints of ``tile``.  When ``launch_hook`` is set it is called as
+    ``launch_hook(stage, fn_name, allele, read, tensors, tile)``, with stage
+    "enter" on entry and "call" / "return" just before and after the library
+    call (a profiler records CUDA events there)."""
     from .._build import load
 
+    hook = launch_hook
+    if hook is not None:
+        hook("enter", fn_name, allele, read, tensors, tile)
     lib = load()
     B, Xp = allele.shape
     Yp = read.shape[1]
@@ -394,7 +425,11 @@ def _launch(fn_name, allele, read, *tensors):
     ptrs = [t.data_ptr() for t in (allele, read, *tensors, out)]
     with torch.cuda.device(allele.device):
         stream = torch.cuda.current_stream(allele.device).cuda_stream
-        err = getattr(lib, fn_name)(*ptrs, B, Xp, Yp, stream)
+        if hook is not None:
+            hook("call", fn_name, allele, read, tensors, tile)
+        err = getattr(lib, fn_name)(*ptrs, B, Xp, Yp, *tile, stream)
+        if hook is not None:
+            hook("return", fn_name, allele, read, tensors, tile)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
     return out
@@ -417,16 +452,22 @@ def exact_forward(allele, read, qual, alen, rlen, coef):
 exact_forward.launches = 0
 
 
-def general_forward(allele, read, qual, alen, rlen, coef):
+def general_forward(allele, read, qual, alen, rlen, coef, tile=None):
     """K3: [B] f32 log forward probabilities, constant finite extensions.
-    CPU tensors: the plain version.  CUDA tensors: the kernel (counted in
-    ``general_forward.launches``)."""
+    CPU tensors: the plain version.  CUDA tensors: the kernel at ``tile``
+    (lanes, rows), by default :func:`general_tile` of the panel width
+    (counted in ``general_forward.launches``)."""
     _check("general_forward", allele, read, qual, alen, rlen, coef, 7)
+    Xp = allele.shape[1]
+    tile = general_tile(Xp) if tile is None else tuple(tile)
+    fits = tile == (32, 32) if Xp > 32 * 32 else tile[0] * tile[1] >= Xp
+    if tile not in GENERAL_TILES or not fits:
+        raise ValueError(f"general_forward: tile {tile} does not take Xp = {Xp}")
     if allele.device.type == "cpu":
         return general_forward_reference(allele, read, qual, alen, rlen, coef)
     if allele.device.type != "cuda":
         raise ValueError(f"general_forward: unsupported device {allele.device}")
-    out = _launch("vlt_pairhmm_general", allele, read, qual, alen, rlen, coef)
+    out = _launch("vlt_pairhmm_general", allele, read, qual, alen, rlen, coef, tile=tile)
     general_forward.launches += 1
     return out
 

@@ -29,9 +29,11 @@ the JAX package ``varlociraptor_tpu``:
                        timed with CUDA events.
   (a'') positional_vs_plain
                        K4 against its plain torch version on the card, on the
-                       sets of (a'), with ONT-like base gap rates and hop rates
-                       of 0.05 for every base inside homopolymer runs (the gap
-                       panels built on the card); timed with CUDA events.
+                       sets of (a') and at K4's main-path shape
+                       (K4_MAIN_SHAPE), with ONT-like base gap rates and hop
+                       rates of 0.05 for every base inside homopolymer runs
+                       (the gap panels built on the card); each case names
+                       K4's tile; timed with CUDA events.
   (b) engine           the tumor-normal engine (resolution 0.01) on 32768
                        synthetic loci at depth 64, every output copied to the
                        host; K1 must launch twice per call; the first 1024 loci
@@ -59,16 +61,19 @@ the JAX package ``varlociraptor_tpu``:
                        ``estimate`` (finite hop params for all four bases),
                        ``preprocess variants --pairhmm-mode homopolymer
                        --device cuda`` (both samples; K4 launches, K2 and K3
-                       do not), the 192-locus ``--device cpu`` re-preprocess
-                       (compared), call and FDR.
+                       do not), K4's launches by panel shape and tile and its
+                       first 8 launches re-timed warm (their inputs saved to
+                       build/chip_smoke/homopolymer/k4_main_launches.pt), the
+                       192-locus ``--device cpu`` re-preprocess (compared),
+                       call and FDR.
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
 launches counted in phase (c), K2 and K3 with those counted in phase (d)'s
 preprocess steps, K4 with those of phase (e)'s; each with its time, its
 plain version's, and its bound (operations over the float32 peak or bytes
 over the memory rate, whichever is larger, on that kernel's timed inputs;
-K2-K4 at 16384 x 256 x 150, K3 also at its main-path shape,
-``main_path_shape``); no single PyTorch call computes any of them
+K2-K4 at 16384 x 256 x 150, K3 and K4 also at their main-path shapes,
+``main_path_shape``, with the tile); no single PyTorch call computes any of them
 (library_ms null); the last
 line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero, and without a
@@ -100,13 +105,18 @@ K23_TOL = 1e-4
 # phase (a')'s timed pair-HMM shapes (items x allele x read): the bench
 # shape, and the K3 launch shape that carries the most cells on phase (d)'s
 # main path (its median items per launch, the panel width, 100-base reads;
-# from phase (d)'s k3_shapes record)
+# from phase (d)'s k3_shapes record); phase (a'') times K4 at the same two
+# and at K4's main-path shape (phase (e)'s k4_shapes record)
 BENCH_SET = "b16384_x256_y150"
 K3_MAIN_SHAPE = (4408, 128, 100)
 MAIN_SET = "b{}_x{}_y{}_main".format(*K3_MAIN_SHAPE)
-# phase (d) re-times its first K3 launches warm and saves their inputs
-K3_RERUN = 8
+K4_MAIN_SHAPE = (4326, 128, 100)
+K4_MAIN_SET = "b{}_x{}_y{}_k4main".format(*K4_MAIN_SHAPE)
+# phases (d) and (e) re-time their first K3 / K4 launches warm and save
+# their inputs
+RERUN = 8
 K3_LAUNCHES_FILE = "k3_main_launches.pt"
+K4_LAUNCHES_FILE = "k4_main_launches.pt"
 # log gap params (t_mi, t_md, t_ii, t_dd): the default zero-extension model
 # and ONT-like finite extensions (tests/test_pallas_pairhmm.py)
 GAP_ZERO = (-12.785891140783116, -12.186270018233994, -1e30, -1e30)
@@ -173,8 +183,12 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters, warmup=1):
-    """Mean milliseconds per call from CUDA events, after a warm-up."""
+def cuda_ms(fn, iters, warmup=1, ahead=False):
+    """Mean milliseconds per call from CUDA events, after a warm-up.  With
+    ``ahead`` the card first spins ~0.5 ms per call, so that the host has
+    queued every call before the first one runs: a kernel shorter than its
+    wrapper's host work (the pair-HMM's ~0.07 ms at the main-path shapes)
+    is then timed back to back and not at the host's pace."""
     import torch
 
     for _ in range(warmup):
@@ -182,6 +196,8 @@ def cuda_ms(fn, iters, warmup=1):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(1_000_000 * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -459,7 +475,7 @@ def pairhmm_case(kind, name, fn, ref_fn, dev, timer):
             "impossible": int((~live).sum()), "max_abs_err": float(err.max()),
             "max_rel_err": rel}
     if n >= 4096:
-        case["ms"] = timer(lambda: fn(*dev), 10)
+        case["ms"] = timer(lambda: fn(*dev), 10, ahead=True)
         case["plain_ms"] = timer(lambda: ref_fn(*dev), 2)
         # the cells these items need (allele length x read length), every
         # input read once and the [B] output written once
@@ -496,6 +512,14 @@ def phase_pairhmm_vs_plain(timer=cuda_ms):
     return out, bench, main
 
 
+def positional_sets():
+    """(name, alleles, reads, quals) of phase (a''): those of (a') and K4's
+    main-path shape."""
+    from varlociraptor_tpu_torch.bench_utils import pairhmm_shape_items
+
+    return pairhmm_sets() + [(K4_MAIN_SET, *pairhmm_shape_items(*K4_MAIN_SHAPE, seed=5))]
+
+
 def phase_positional_vs_plain(timer=cuda_ms):
     """(a''): K4 on the sets of (a'), the gap panels built on the card."""
     from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams
@@ -504,21 +528,24 @@ def phase_positional_vs_plain(timer=cuda_ms):
     hop = HopParams(*([[HOP_LN] * 4] * 4))
     out = {"phase": "positional_vs_plain", "tol_rel": K23_TOL, "hop_ln": HOP_LN,
            "gap": GAP_ONT, "cases": []}
-    bench, worst = None, 0.0
-    for name, alleles, reads, quals in pairhmm_sets():
+    bench, main, worst = None, None, 0.0
+    for name, alleles, reads, quals in positional_sets():
         dev = phc.positional_args(alleles, reads, quals, GAP_ONT, hop, "cuda")
         case = pairhmm_case("positional", name, phc.positional_forward,
                             phc.positional_forward_reference, dev, timer)
+        case["tile"] = list(phc.positional_tile(case["Xp"]))
         worst = max(worst, case["max_abs_err"])
         if name == BENCH_SET:
             bench = case
+        elif name == K4_MAIN_SET:
+            main = case
         out["cases"].append(case)
     out["max_abs_err"] = worst
-    return out, bench
+    return out, bench, main
 
 
-def k3_shape_record(launches):
-    """K3's launches by panel shape (Xp x Yp): launches, items, the cells
+def shape_record(launches):
+    """K3's or K4's launches by panel shape (Xp x Yp): launches, items, the cells
     the items need (sum of alen x rlen), the allele rows the kernel computes
     (B x the tile's rows), kernel and around-launch ms; the median items per
     launch; and the (B, Xp, Yp) of the shape that carries the most cells
@@ -559,8 +586,9 @@ def timed_pairhmm():
     """Device time and work items of every K2 / K3 / K4 launch inside the
     block, from CUDA events recorded through ``pairhmm_column.launch_hook``
     (counts untouched): "ms" brackets the library call alone, "around_ms"
-    the whole launch helper with its host work; K3's launches also by shape
-    (:func:`k3_shape_record`)."""
+    the whole launch helper with its host work; K3's and K4's launches also
+    by shape (:func:`shape_record`, "shapes"), and their first RERUN
+    launches ("first")."""
     import torch
 
     from varlociraptor_tpu_torch.ops import pairhmm_column as phc
@@ -594,22 +622,24 @@ def timed_pairhmm():
             stats[fn] = {"ms": sum(r["kernel_ms"] for r in mine),
                          "around_ms": sum(r["around_ms"] for r in mine),
                          "forwards": sum(r["allele"].shape[0] for r in mine)}
-        k3 = [r for r in launches if r["fn"] == "vlt_pairhmm_general"]
-        stats["k3_shapes"] = k3_shape_record(k3)
-        stats["k3_launches"] = k3[:K3_RERUN]
+        stats["shapes"], stats["first"] = {}, {}
+        for fn in ("vlt_pairhmm_general", "vlt_pairhmm_positional"):
+            mine = [r for r in launches if r["fn"] == fn]
+            stats["shapes"][fn] = shape_record(mine)
+            stats["first"][fn] = mine[:RERUN]
 
 
-def k3_warm_rerun(records, path):
-    """The first main-path K3 launches again, each back to back after a
-    warm-up (through the launch helper, so not counted), beside their
-    in-path kernel time: how much of that is the card starting from idle.
-    Their inputs are saved to ``path`` (for scripts/torch_k3_variants.py
-    --real)."""
+def warm_rerun(records, path):
+    """The first main-path launches of a pair-HMM entry again, each back to
+    back after a warm-up (through the launch helper, so not counted), beside
+    their in-path kernel time: how much of that is the card starting from
+    idle.  Their inputs are saved to ``path`` (for
+    scripts/torch_k3_variants.py --real)."""
     import torch
 
     from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
-    warm = [cuda_ms(lambda: phc._launch("vlt_pairhmm_general", *r["args"], tile=r["tile"]), 10)
+    warm = [cuda_ms(lambda: phc._launch(r["fn"], *r["args"], tile=r["tile"]), 10, ahead=True)
             for r in records]
     torch.save([[t.cpu() for t in r["args"]] for r in records], path)
     return {"launches": len(records), "items": sum(r["allele"].shape[0] for r in records),
@@ -816,8 +846,9 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
     res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
     pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"]
                   + secs["preprocess_normal_other_model"])
-    res["k3_shapes"] = hmm_stats["k3_shapes"]
-    res["k3_warm_rerun"] = k3_warm_rerun(hmm_stats["k3_launches"], work / K3_LAUNCHES_FILE)
+    res["k3_shapes"] = hmm_stats["shapes"]["vlt_pairhmm_general"]
+    res["k3_warm_rerun"] = warm_rerun(hmm_stats["first"]["vlt_pairhmm_general"],
+                                      work / K3_LAUNCHES_FILE)
 
     # 3. the first n_cpu loci again on the CPU (plain K2 / K3), same chunk
     res["cuda_vs_cpu"] = cpu_recheck(w, work, props_path, obs, secs, n_cpu)
@@ -869,6 +900,9 @@ def phase_homopolymer(work, genome_len=2_000_000, n_germline=1000, n_somatic=500
     res["pairhmm_launches"] = launches
     res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
     pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"])
+    res["k4_shapes"] = hmm_stats["shapes"]["vlt_pairhmm_positional"]
+    res["k4_warm_rerun"] = warm_rerun(hmm_stats["first"]["vlt_pairhmm_positional"],
+                                      work / K4_LAUNCHES_FILE)
 
     # 3. the first n_cpu loci again on the CPU (plain K4)
     res["cuda_vs_cpu"] = cpu_recheck(w, work, props_path, obs, secs, n_cpu,
@@ -916,7 +950,7 @@ def main():
     emit(a)
     a2, hmm_bench, hmm_main = phase_pairhmm_vs_plain()
     emit(a2)
-    a3, k4_bench = phase_positional_vs_plain()
+    a3, k4_bench, k4_main = phase_positional_vs_plain()
     emit(a3)
     emit(phase_engine(engine))
     c, launches = phase_cli(work)
@@ -935,7 +969,8 @@ def main():
         raise PhaseError(f"the port tried to import {repo_attempts or 'jax'}")
     # no single PyTorch call computes any of the four functions
     timing = lambda case: {k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
-    k3_main = hmm_main["general"]
+    main_shape = lambda case: {"main_path_shape": {  # noqa: E731
+        **{k: case[k] for k in ("B", "Xp", "Yp", "tile")}, **timing(case)}}
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -945,13 +980,12 @@ def main():
         "replaces": replaces, "launches": hmm_launches[kind],
         "max_abs_err": a2["max_abs_err"][kind], **timing(hmm_bench[kind]),
         "library_ms": None,
-        **({"main_path_shape": {"B": k3_main["B"], "Xp": k3_main["Xp"], "Yp": k3_main["Yp"],
-                                "tile": k3_main["tile"], **timing(k3_main)}}
-           if kind == "general" else {}),
+        **(main_shape(hmm_main["general"]) if kind == "general" else {}),
     } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))] + [{
         "name": "pairhmm_positional", "route": "cuda", "source": K23_SOURCE,
         "replaces": K4_REPLACES, "launches": hp_launches["positional"],
         "max_abs_err": a3["max_abs_err"], **timing(k4_bench), "library_ms": None,
+        **main_shape(k4_main),
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

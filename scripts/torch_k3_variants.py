@@ -1,28 +1,35 @@
-"""K3 tile variants, and earlier pair-HMM libraries, timed against each other on one card.
+"""K3 or K4 tile variants, and earlier pair-HMM libraries, timed against each other on one card.
 
-    python scripts/torch_k3_variants.py [--old OLD.cu ...]
-        [--variants new new:r8 new:l32 OLD ...] [--real LAUNCHES.pt]
-        [--rounds 5] [--out DIR]
+    python scripts/torch_k3_variants.py [--kernel general|positional]
+        [--old OLD.cu ...] [--variants new new:r8 new:l32 OLD ...]
+        [--real LAUNCHES.pt] [--rounds 5] [--out DIR]
 
 Builds ``varlociraptor_tpu_torch/csrc/pairhmm_column.cu`` ("new") and each
 ``--old`` source (an earlier ``pairhmm_column.cu``, e.g. ``git show
 <commit>:varlociraptor_tpu_torch/csrc/pairhmm_column.cu``, named by its file
-stem) with ``-Xptxas -v``, one nvcc per source, all at once.  A variant is a
-library and, for a library whose K3 entry takes a tile, a tile policy:
-``:rN`` caps the rows per lane at N, ``:lN`` fixes N lanes per item, and the
-tile is then the one ``ops/pairhmm_column.general_tile`` picks under those
-limits (no suffix: its default).  Each variant's K3 is held to the plain
-version on every set of ``chip_smoke.py`` phase (a') (1e-4 x max(1, |x|),
-the same finiteness and -1e30 items), then all variants are timed with CUDA
-events in rounds that rotate their order, at the three timed shapes of
-phase (a') (4096 x 160 x 100, 16384 x 256 x 150 and the main-path shape
-``chip_smoke.K3_MAIN_SHAPE``) and, with ``--real``, on the main-path K3
-launches that ``chip_smoke.py`` phase (d) saved (each held to the plain
-version too, timed as one run of all of them).  K2 and K4 of every library
-are timed beside them at the three shapes.  Prints the card's name and power limit, one JSON
-line per library (registers and spills of each kernel, K2 / K4 median ms)
-and per variant (tiles, errors, K3 median ms), and writes all of it to
-DIR/k3_variants.json.  Needs a CUDA device and nvcc; exits non-zero
+stem) with ``-Xptxas -v``, one nvcc per source, all at once.  ``--kernel``
+picks the kernel under study: K3 (``general``, the default) or K4
+(``positional``).  A variant is a library and, for a library whose entry of
+that kernel takes a tile, a tile policy: ``:rN`` caps the rows per lane at
+N, ``:lN`` fixes N lanes per item, and the tile is then the one
+``ops/pairhmm_column.general_tile`` picks under those limits (no suffix:
+the kernel's default, ``general_tile`` or ``positional_tile``).  Each
+variant is held to the kernel's plain version on every set of
+``chip_smoke.py`` phase (a') (K3) or (a'') (K4) (1e-4 x max(1, |x|), the
+same finiteness and -1e30 items), then all variants are timed with CUDA
+events (``chip_smoke.cuda_ms`` with the card held ahead, so that the host
+queues every call before the first runs) in rounds that rotate their
+order, at the three timed shapes
+(4096 x 160 x 100, 16384 x 256 x 150 and the kernel's main-path shape,
+``chip_smoke.K3_MAIN_SHAPE`` or ``K4_MAIN_SHAPE``) and, with ``--real``, on
+the main-path launches that ``chip_smoke.py`` phase (d) (K3) or (e) (K4)
+saved (each held to the plain version too, timed as one run of all of
+them).  The other two pair-HMM kernels of every library (K2 and K4, or K2
+and K3 at ``general_tile``) are timed beside them at the three shapes.
+Prints the card's name and power limit, one JSON line per library
+(registers and spills of each kernel, the other kernels' median ms) and per
+variant (tiles, errors, median ms), and writes all of it to
+DIR/<kernel>_variants.json.  Needs a CUDA device and nvcc; exits non-zero
 without them or when a variant disagrees with the plain version.
 """
 
@@ -48,7 +55,14 @@ from varlociraptor_tpu_torch._build import ARCH_FLAGS, CSRC, _nvcc  # noqa: E402
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc  # noqa: E402
 
 TOL = chip_smoke.K23_TOL
-SHAPES = ("b4096_x160_y100", chip_smoke.BENCH_SET, chip_smoke.MAIN_SET)
+# per kernel under study: its C entry, plain version, default tile policy,
+# sets and main-path shape
+KERNELS = {
+    "general": ("vlt_pairhmm_general", phc.general_forward_reference, phc.general_tile,
+                chip_smoke.pairhmm_sets, chip_smoke.MAIN_SET),
+    "positional": ("vlt_pairhmm_positional", phc.positional_forward_reference,
+                   phc.positional_tile, chip_smoke.positional_sets, chip_smoke.K4_MAIN_SET),
+}
 
 
 def _compile(jobs, out_dir):
@@ -85,12 +99,13 @@ class Library:
     """A pair-HMM library's three C entries, bound with ctypes."""
 
     def __init__(self, path, tiled):
+        """tiled: {C entry: whether it takes a tile}."""
         self.lib = ctypes.CDLL(str(path))
         self.tiled = tiled
         p, i = ctypes.c_void_p, ctypes.c_int
         self.lib.vlt_pairhmm_exact.argtypes = [p] * 7 + [i] * 3 + [p]
-        self.lib.vlt_pairhmm_general.argtypes = [p] * 7 + [i] * (5 if tiled else 3) + [p]
-        self.lib.vlt_pairhmm_positional.argtypes = [p] * 10 + [i] * 3 + [p]
+        for fn, n_ptr in (("vlt_pairhmm_general", 7), ("vlt_pairhmm_positional", 10)):
+            getattr(self.lib, fn).argtypes = [p] * n_ptr + [i] * (5 if tiled[fn] else 3) + [p]
 
     def __call__(self, fn_name, allele, read, *tensors, tile=()):
         B, Xp = allele.shape
@@ -103,11 +118,13 @@ class Library:
         return out
 
 
-def _tile(spec, Xp):
+def _tile(spec, Xp, default):
     """The tile of a variant spec's policy at panel width Xp (None: the
-    library picks its own)."""
+    library picks its own; no limits: ``default``)."""
     if spec is None:
         return None
+    if not spec:
+        return default(Xp)
     limits = {"r": None, "l": None}
     for part in spec:
         limits[part[0]] = int(part[1:])
@@ -126,27 +143,23 @@ def _rel_err(got, ref):
 
 
 def _ms(fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return chip_smoke.cuda_ms(fn, iters, ahead=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="general")
     ap.add_argument("--old", nargs="*", default=[], help="earlier pairhmm_column.cu sources")
     ap.add_argument("--variants", nargs="*", default=["new"],
                     help="LIB[:rN][:lN]: a library (new, or an --old stem) and a tile policy")
-    ap.add_argument("--real", help="K3 launches saved by chip_smoke.py phase (d) "
-                                   f"(build/chip_smoke/{chip_smoke.K3_LAUNCHES_FILE})")
+    ap.add_argument("--real", help="launches saved by chip_smoke.py phase (d) or (e) "
+                                   f"(build/chip_smoke/{chip_smoke.K3_LAUNCHES_FILE}, "
+                                   f"build/chip_smoke/homopolymer/{chip_smoke.K4_LAUNCHES_FILE})")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out", default=str(ROOT / "build" / "k3_variants"))
     args = ap.parse_args(argv)
+    entry, reference, default_tile, sets_of, main_set = KERNELS[args.kernel]
+    shapes = ("b4096_x160_y100", chip_smoke.BENCH_SET, main_set)
     if not torch.cuda.is_available():
         print("k3_variants: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -156,42 +169,53 @@ def main(argv=None):
     jobs = {"new": CSRC / "pairhmm_column.cu"}
     jobs.update({Path(p).stem: Path(p) for p in args.old})
     built = _compile(jobs, out_dir / "libs")
-    tiled = {name: re.search(r"vlt_pairhmm_general\([^)]*int lanes", src.read_text()) is not None
+    tiled = {name: {fn: re.search(fn + r"\([^)]*int lanes", src.read_text()) is not None
+                    for fn in ("vlt_pairhmm_general", "vlt_pairhmm_positional")}
              for name, src in jobs.items()}
     libs = {name: Library(lib, tiled[name]) for name, (lib, _) in built.items()}
     variants = {}
     for v in args.variants:
         lib, *spec = v.split(":")
-        variants[v] = (lib, spec if tiled[lib] else None)
+        variants[v] = (lib, spec if tiled[lib][entry] else None)
+    # the other two kernels of each library, at their default tiles
+    others_fn = [fn for fn in ("vlt_pairhmm_exact", "vlt_pairhmm_general",
+                               "vlt_pairhmm_positional") if fn != entry]
+    other_tile = {"vlt_pairhmm_exact": lambda Xp: (), "vlt_pairhmm_general": phc.general_tile,
+                  "vlt_pairhmm_positional": phc.positional_tile}
 
     from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams
 
     hop = HopParams(*([[chip_smoke.HOP_LN] * 4] * 4))
     report = {"libraries": {name: {"kernels": info, "ms": {}} for name, (_, info) in built.items()},
               "variants": {v: {"tiles": {}, "max_rel_err": {}, "ms": {}} for v in variants}}
-    k3_sets = []  # (name, K3 device inputs)
-    timed, others = {}, {}  # K3 launches, and K2 / K4 inputs, per timed shape
-    for name, alleles, reads, quals in chip_smoke.pairhmm_sets():
+    checked = []  # (name, device inputs of the kernel under study)
+    timed, others = {}, {}  # its launches, and the other kernels' inputs, per timed shape
+    for name, alleles, reads, quals in sets_of():
         packed, _, _, _ = phc.pack_exact_batch(alleles, reads, quals, chip_smoke.GAP_ONT)
-        dev = phc.to_device(packed[:5] + (phc.general_coef(chip_smoke.GAP_ONT),), "cuda")
-        k3_sets.append((name, dev))
-        if name in SHAPES:
-            zero = phc.to_device(phc.pack_exact_batch(alleles, reads, quals,
-                                                      chip_smoke.GAP_ZERO)[0], "cuda")
-            pos = phc.positional_args(alleles, reads, quals, chip_smoke.GAP_ONT, hop, "cuda")
+        inputs = {
+            "vlt_pairhmm_exact": lambda: phc.to_device(phc.pack_exact_batch(
+                alleles, reads, quals, chip_smoke.GAP_ZERO)[0], "cuda"),
+            "vlt_pairhmm_general": lambda: phc.to_device(
+                packed[:5] + (phc.general_coef(chip_smoke.GAP_ONT),), "cuda"),
+            "vlt_pairhmm_positional": lambda: phc.positional_args(
+                alleles, reads, quals, chip_smoke.GAP_ONT, hop, "cuda"),
+        }
+        dev = inputs[entry]()
+        checked.append((name, dev))
+        if name in shapes:
             timed[name] = [dev]
-            others[name] = (zero, pos)
-    if args.real:  # phase (d)'s own K3 launches, saved by chip_smoke.py
+            others[name] = {fn: inputs[fn]() for fn in others_fn}
+    if args.real:  # the main path's own launches, saved by chip_smoke.py
         real = [tuple(t.cuda() for t in launch) for launch in torch.load(args.real)]
-        k3_sets += [(f"main_path_launch_{k}", dev) for k, dev in enumerate(real)]
+        checked += [(f"main_path_launch_{k}", dev) for k, dev in enumerate(real)]
         timed["main_path_launches"] = real
 
     ok = True
-    for name, dev in k3_sets:
-        ref = phc.general_forward_reference(*dev)
+    for name, dev in checked:
+        ref = reference(*dev)
         for v, (lib, spec) in variants.items():
-            tile = _tile(spec, dev[0].shape[1])
-            err = _rel_err(libs[lib]("vlt_pairhmm_general", *dev, tile=tile or ()), ref)
+            tile = _tile(spec, dev[0].shape[1], default_tile)
+            err = _rel_err(libs[lib](entry, *dev, tile=tile or ()), ref)
             report["variants"][v]["tiles"][name] = tile
             report["variants"][v]["max_rel_err"][name] = err
             ok &= err is not None and err <= TOL
@@ -202,18 +226,20 @@ def main(argv=None):
 
     def run_all(lib, launches, tile_of):
         for dev in launches:
-            libs[lib]("vlt_pairhmm_general", *dev, tile=tile_of(dev[0].shape[1]) or ())
+            libs[lib](entry, *dev, tile=tile_of(dev[0].shape[1]) or ())
 
     for k in range(args.rounds):
         for v in rotated(list(variants), k):
             lib, spec = variants[v]
             for sname, launches in timed.items():
-                t = _ms(lambda: run_all(lib, launches, lambda Xp: _tile(spec, Xp)), 10)
+                t = _ms(lambda: run_all(lib, launches, lambda Xp: _tile(spec, Xp, default_tile)),
+                        10)
                 report["variants"][v]["ms"].setdefault(sname, []).append(t)
         for lib in rotated(list(libs), k):
-            for sname, (zero, pos) in others.items():
-                for fn, xs in (("vlt_pairhmm_exact", zero), ("vlt_pairhmm_positional", pos)):
-                    t = _ms(lambda: libs[lib](fn, *xs), 10)
+            for sname, per_fn in others.items():
+                for fn, xs in per_fn.items():
+                    tile = other_tile[fn](xs[0].shape[1]) if libs[lib].tiled.get(fn) else ()
+                    t = _ms(lambda: libs[lib](fn, *xs, tile=tile), 10)
                     report["libraries"][lib]["ms"].setdefault(fn, {}).setdefault(sname, []).append(t)
     for name, rep in report["libraries"].items():
         rep["median_ms"] = {fn: {s: statistics.median(v) for s, v in per.items()}
@@ -223,14 +249,15 @@ def main(argv=None):
     for v, rep in report["variants"].items():
         rep["median_ms"] = {s: statistics.median(x) for s, x in rep["ms"].items()}
         errs = [e for e in rep["max_rel_err"].values()]
-        print(json.dumps({"variant": v, "tiles": {s: t for s, t in rep["tiles"].items()
-                                                  if s in timed or s == "main_path_launch_0"},
+        print(json.dumps({"variant": v, "kernel": args.kernel,
+                          "tiles": {s: t for s, t in rep["tiles"].items()
+                                    if s in timed or s == "main_path_launch_0"},
                           "worst_rel_err": None if None in errs else max(errs),
                           "failed_sets": [s for s, e in rep["max_rel_err"].items()
                                           if e is None or e > TOL],
                           "median_ms": rep["median_ms"]}), flush=True)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "k3_variants.json").write_text(json.dumps(report, indent=1))
+    (out_dir / f"{args.kernel}_variants.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1
 

@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels on the card: K1 (csrc/ll_classes.cu),
-K2, K3 and K4 (csrc/pairhmm_column.cu).
+K2, K3 and K4 (csrc/pairhmm_column.cu), K3 and K4 at every tile.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false.  On a machine with an NVIDIA card and nvcc:
@@ -256,6 +256,51 @@ def test_positional_kernel_matches_plain(card, name):
     assert np.array_equal(items == -1e30, cpu == -1e30)
     ok = cpu > -1e30
     assert np.all(np.abs(items[ok] - cpu[ok]) <= PAIRHMM_TOL * np.maximum(1, np.abs(cpu[ok])))
+
+
+def _k4_against_plain(alleles, reads, quals, card, tile=None):
+    """K4 at ``tile`` (default: positional_tile) against its plain version
+    on the card, ONT-like base rates and hop rates of 0.05 inside runs: the
+    same finiteness and -1e30 items, PAIRHMM_TOL."""
+    args = phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, card)
+    got = phc.positional_forward(*args, tile=tile)
+    torch.cuda.synchronize()
+    ref = phc.positional_forward_reference(*args)
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    assert g.shape == (len(alleles),)
+    assert np.array_equal(np.isfinite(g), np.isfinite(r))
+    assert np.array_equal(g == -1e30, r == -1e30)
+    ok = r > -1e30
+    err = np.abs(g[ok] - r[ok]) / np.maximum(1.0, np.abs(r[ok]))
+    assert np.all(err <= PAIRHMM_TOL), (tile, err.max())
+
+
+@pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
+def test_k4_tile_sets_match_plain(card, name):
+    """K4's tiled layout on the sets of K3's: reads of 1, 4, 37 and 100
+    bases in one warp, allele lengths off the rows per lane, and panel
+    widths 32 to 1056."""
+    _k4_against_plain(*pairhmm_tile_items()[name], card)
+
+
+@pytest.mark.parametrize("tile", phc.GENERAL_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_k4_every_tile_matches_plain(card, tile):
+    """Each instantiated K4 tile, forced through the C entry, on the widest
+    tile set it covers and on the mixed read lengths where it covers them."""
+    sets = pairhmm_tile_items()
+    widths = [X for X in PAIRHMM_TILE_WIDTHS if X <= tile[0] * tile[1]]
+    _k4_against_plain(*sets[f"width_{max(widths)}"], card, tile=tile)
+    if tile[0] * tile[1] >= 128:
+        _k4_against_plain(*sets["mixed_rlen_in_warp"], card, tile=tile)
+        _k4_against_plain(*sets["alen_not_multiple_of_rows"], card, tile=tile)
+
+
+def test_k4_entry_refuses_a_tile_that_does_not_take_the_panel(card):
+    alleles, reads, quals = pairhmm_tile_items()["width_128"]
+    args = phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, card)
+    for tile in ((8, 8), (5, 32)):  # covers 64 rows; no such instantiation
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            phc._launch("vlt_pairhmm_positional", *args, tile=tile)
 
 
 def test_positional_wrapper_checks_its_inputs(card):

@@ -166,16 +166,21 @@ def test_general_coef_matches_jax(monkeypatch):
 
 
 def _parent_rows(Xp):
-    """Allele rows the one-warp-per-item layout (K2's and K4's) computes: 32
-    lanes x the smallest power of two >= Xp/32, at least 2."""
+    """Allele rows the one-warp-per-item layout (K2's) computes: 32 lanes x
+    the smallest power of two >= Xp/32, at least 2."""
     r = 2
     while r < -(-Xp // 32):
         r *= 2
     return 32 * r
 
 
-@pytest.mark.parametrize("Xp", [1, 8, 31, 32, 33, 64, 65, 96, 100, 128, 129, 160, 192,
-                                224, 256, 300, 384, 512, 513, 768, 1000, 1024])
+# panel widths the tile policies are checked at: the edges of each tile's
+# rows and the packed widths of the preprocess windows
+TILE_POLICY_WIDTHS = [1, 8, 31, 32, 33, 64, 65, 96, 100, 128, 129, 160, 192, 224, 256, 300,
+                      384, 512, 513, 768, 1000, 1024]
+
+
+@pytest.mark.parametrize("Xp", TILE_POLICY_WIDTHS)
 def test_general_tile_fits_the_panel(Xp):
     """K3's tile covers the panel, its lanes divide a warp, and it pads no
     more rows than the one-warp-per-item layout did (at most one lane's
@@ -479,14 +484,20 @@ def _k4_sets():
                                        [dels[0]], [dels[1]])
     alleles, reads, quals = _homopolymer_items(15, 9)
     alleles, reads, quals = alleles[:-1], reads[:-1], quals[:-1]  # no empty read
+    out["homopolymer_hop"] = (alleles, reads, quals, *_hop_log_panels(alleles, reads, quals))
+    return out
+
+
+def _hop_log_panels(alleles, reads, quals):
+    """LOG per-item io / ie / do / de of the port's panels at ONT-like base
+    rates and hop rates of 0.05 inside homopolymer runs."""
     hmm = BatchedPairHMM(ONT_GAPS, HOP, mode="homopolymer", device="cpu")
     lin = _port_panels(hmm, alleles, reads, quals)
     logs = []
     for panel, items in zip(lin, (reads, reads, alleles, alleles)):
         with np.errstate(divide="ignore"):
             logs.append([np.maximum(np.log(p[: len(x)]), NEG_INF) for p, x in zip(panel, items)])
-    out["homopolymer_hop"] = (alleles, reads, quals, *logs)
-    return out
+    return logs
 
 
 @pytest.mark.parametrize("name", sorted(_k4_sets()))
@@ -505,6 +516,77 @@ def test_plain_k4_matches_jax(name):
     if name == "long_deletion_varying_de":
         k3 = phc.forward_items(alleles, reads, quals, GAP_ONT, "cpu", True)
         assert abs(k3[0] - got[0]) > 0.1
+
+
+@pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
+def test_plain_k4_matches_jax_on_the_tile_sets(name):
+    """The sets that K4's tiled layout is checked on, on the card, against
+    its plain version (reads of 1-100 bases in one warp, allele lengths off
+    the rows per lane, panel widths 32-1056): here the plain K4 against the
+    JAX Pallas K4 (interpret mode), with hop rates inside the runs.  Reads
+    longer than their allele (``width_*``: up to 28 bases) work at the
+    underflow edge, where XLA flushes float32 denormals and torch keeps them
+    (ROADMAP C, :func:`test_denormals_explain_the_difference_from_xla`), so
+    the plain K4 runs here with denormals flushed as XLA runs it."""
+    alleles, reads, quals = pairhmm_tile_items()[name]
+    panels = _hop_log_panels(alleles, reads, quals)
+    torch.set_flush_denormal(True)
+    try:
+        got = _plain_k4(alleles, reads, quals, *panels)
+    finally:
+        torch.set_flush_denormal(False)
+    pallas = jpp.pallas_positional_forward(alleles, reads, quals, *panels, interpret=True)
+    assert np.array_equal(got <= -1e29, pallas <= -1e29)
+    assert _rel(got, pallas) < TOL, _rel(got, pallas)
+
+
+@pytest.mark.parametrize("Xp", TILE_POLICY_WIDTHS)
+def test_positional_tile_fits_the_panel(Xp):
+    """K4's tile covers the panel with K3's padding, its lanes divide a warp,
+    and of the tiles that pad as little it has the fewest lanes."""
+    lanes, rows = phc.positional_tile(Xp)
+    assert (lanes, rows) in phc.GENERAL_TILES
+    assert 32 % lanes == 0 and lanes >= 8
+    assert Xp <= lanes * rows == np.prod(phc.general_tile(Xp)) <= _parent_rows(Xp)
+    assert not any(t[0] < lanes and t[0] * t[1] == lanes * rows for t in phc.GENERAL_TILES)
+
+
+def test_positional_tile_every_width():
+    for Xp in range(1, 1025):
+        tile = phc.positional_tile(Xp)
+        assert tile in phc.GENERAL_TILES and Xp <= np.prod(tile) == np.prod(phc.general_tile(Xp))
+        # K3's tile but at 65-128 rows, where K4 takes 8 lanes
+        assert tile == (phc.general_tile(Xp, lanes=8) if 64 < Xp <= 128 else phc.general_tile(Xp))
+    assert phc.positional_tile(128) == (8, 16)  # the main path's panel
+    assert phc.positional_tile(160) == (16, 10) and phc.positional_tile(256) == (16, 16)
+    assert phc.positional_tile(1056) == phc.positional_tile(32 * 32 * 32) == (32, 32)
+
+
+def test_positional_tiles_are_the_kernel_instantiations():
+    """The CUDA source instantiates K4's tiled kernel for every tile of
+    VLT_GENERAL_TILES (the pairs GENERAL_TILES lists), so a tile that K4's
+    wrapper takes always launches."""
+    import re
+    from pathlib import Path
+
+    src = (Path(phc.__file__).parent.parent / "csrc" / "pairhmm_column.cu").read_text()
+    launch = src[src.index("int launch_tiled("):]
+    launch = launch[: launch.index("\n}\n")]
+    tile_macro = re.search(r"#define VLT_TILE\(l, r\)(.*?)\n  VLT_GENERAL_TILES\(VLT_TILE\)",
+                           launch, re.S)
+    assert tile_macro and "pairhmm_positional_tiled_kernel<l, r>" in tile_macro.group(1)
+    assert 'vlt_pairhmm_positional' in src and "launch_tiled<true>" in src
+
+
+@pytest.mark.parametrize("tile", [(8, 4), (16, 6), (7, 32), (32, 32)])
+def test_positional_forward_refuses_a_tile_that_does_not_take_the_panel(tile):
+    alleles, reads, quals = pairhmm_shape_items(3, 300, 50)  # Xp = 320
+    args = phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, "cpu")
+    if tile == (32, 32):
+        assert np.isfinite(phc.positional_forward(*args, tile=tile).numpy()).all()
+        return
+    with pytest.raises(ValueError, match="does not take"):
+        phc.positional_forward(*args, tile=tile)
 
 
 def test_denormals_explain_the_difference_from_xla():

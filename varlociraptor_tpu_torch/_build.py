@@ -118,8 +118,9 @@ def load():
             # K3: B, Xp, Yp, then its tile (lanes, rows)
             lib.vlt_pairhmm_general.argtypes = [p] * 7 + [i] * 5 + [p]
             lib.vlt_pairhmm_general.restype = i
-            # K4: the [7] coef gives way to the four gap panels io, ie, do, de
-            lib.vlt_pairhmm_positional.argtypes = [p] * 10 + [i, i, i, p]
+            # K4: the [7] coef gives way to the four gap panels io, ie, do, de;
+            # B, Xp, Yp and its tile
+            lib.vlt_pairhmm_positional.argtypes = [p] * 10 + [i] * 5 + [p]
             lib.vlt_pairhmm_positional.restype = i
             _lib = lib
         return _lib

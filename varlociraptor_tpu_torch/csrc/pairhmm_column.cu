@@ -35,8 +35,9 @@
 // so the card is filled by running many items at once; bytes are no limit
 // (the panels are read once, ~1 byte per cell row/column).
 //
-// Design: a work item is one warp (or, for Xp > 1024, W = ceil(Xp/1024)
-// warps of one block).  Each lane keeps R consecutive allele positions of the
+// Design of K2, and of K3 and K4 over 1024 rows: a work item is one warp
+// (or, for Xp > 1024, W = ceil(Xp/1024) warps of one block).  Each lane
+// keeps R consecutive allele positions of the
 // previous column(s) in registers; R, a power of two, is a template
 // parameter chosen from the panel width.  The i-1 and i-2 shifts are register moves plus one
 // __shfl_up_sync at the lane boundary (shared memory at a warp boundary).
@@ -54,17 +55,21 @@
 // column loop stops at the item's own rlen, which gives what the TPU
 // kernel's frozen output gives.
 //
-// K3 up to Xp = 1024 has a layout of its own (pairhmm_general_tiled_kernel):
-// L = 8, 16 or 32 lanes per item and 32/L items per warp, R rows per lane,
-// the tile (L, R) chosen by the caller (ops/pairhmm_column.py:general_tile)
-// so that L*R covers Xp with little padding and R is large: the per-column
-// cost (shuffles, the group maximum, the D scan's carries, log2 L steps
-// each) is shared by more rows.  Every shuffle has width L, so the items of
-// a warp stay apart; the warp runs to its longest read and each item keeps
-// its sums at its own rlen.  What is the same for every column (allele
-// bytes, the rows' validity, t_dd^r, the scan factors) is set once per item,
-// what is the same for every row of a column once per column.  K3 over 1024
-// rows keeps the multi-warp layout above.
+// K3 and K4 up to Xp = 1024 have a layout of their own
+// (pairhmm_general_tiled_kernel, pairhmm_positional_tiled_kernel, one body
+// with a POS flag): L = 8, 16 or 32 lanes per item and 32/L items per warp,
+// R rows per lane, the tile (L, R) chosen by the caller
+// (ops/pairhmm_column.py:general_tile, positional_tile) so that L*R covers
+// Xp with little padding and R is large: the per-column cost (shuffles, the
+// group maximum, the D scan's carries, log2 L steps each) is shared by more
+// rows.  Every shuffle has width L, so the items of a warp stay apart; the
+// warp runs to its longest read and each item keeps its sums at its own
+// rlen.  What is the same for every column (allele bytes, the rows'
+// validity, the D scan's in-lane and carry factors, K4's do / de and 1 - de)
+// is set once per item, what is the same for every row of a column (K4's
+// io_j, ie_j, 1 - io_j, 1 - ie_j) once per column, so K4's cell adds two
+// instructions to K3's: t_mm = max((1 - io_j) - do_k, 1e-12).  Over 1024
+// rows both keep the multi-warp layout above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -524,41 +529,60 @@ __device__ __forceinline__ float group_left(float mine, int g, float edge) {
   return g == 0 ? edge : v;
 }
 
-// Read base and miscall of column j (1-based) of the group's item: every L
-// columns each lane loads one column, then the group broadcasts them.
-template <int L>
+// Read base and miscall of column j (1-based) of the group's item, and with
+// POS (K4) the column's insertion open / extend: every L columns each lane
+// loads one column, then the group broadcasts them.
+template <int L, bool POS>
 struct GroupCursor {
   const uint8_t* read;
   const uint8_t* qual;
+  const float* io;  // POS only
+  const float* ie;
   int Yp;
   int base = 0;
-  float mis = 0.0f;
+  float mis = 0.0f, o = 0.0f, e = 0.0f;
 
-  __device__ __forceinline__ void get(int j, int g, int& rj, float& mj) {
+  __device__ __forceinline__ void get(int j, int g, int& rj, float& mj, float& oj,
+                                      float& ej) {
     const int idx = j - 1;
     if ((idx & (L - 1)) == 0) {
       const int c = idx + g;
       base = c < Yp ? (read[c] & 0xDF) : 0;
       mis = expf((c < Yp ? (float)qual[c] : 0.0f) * NEG_LN10_10);
+      if (POS) {
+        o = c < Yp ? io[c] : 0.0f;
+        e = c < Yp ? ie[c] : 0.0f;
+      }
     }
     rj = __shfl_sync(FULL, base, idx & (L - 1), L);
     mj = __shfl_sync(FULL, mis, idx & (L - 1), L);
+    if (POS) {
+      oj = __shfl_sync(FULL, o, idx & (L - 1), L);
+      ej = __shfl_sync(FULL, e, idx & (L - 1), L);
+    }
   }
 };
 
-// One lane of a K3 item at L lanes x R rows: allele rows p0 .. p0+R-1, the
-// item's constants and what the lane needs of them, and the column step.
-// Everything that does not change along the read is set once per item: the
-// upper-cased allele bytes, the rows' validity as a weight (0 past alen),
-// t_dd^r and the Kogge-Stone carry factors.  Per column, the emission's two
-// candidates and mj*t_mi, mj*t_ii are taken once for all rows; column 1 is
-// its own instantiation, so the free-start terms leave the loop.
-template <int L, int R>
+// One lane of a K3 (or, POS, K4) item at L lanes x R rows: allele rows
+// p0 .. p0+R-1, the item's constants and what the lane needs of them, and
+// the column step.  Everything that does not change along the read is set
+// once per item: the upper-cased allele bytes, the rows' validity as a
+// weight (0 past alen), the D scan's in-lane factors (K3 t_dd^r, K4 the
+// prefix products of de) and its Kogge-Stone carry factors, and K4's do /
+// de of the lane's rows and 1 - de.  Per column, the emission's two
+// candidates and mj*t_mi, mj*t_ii (K4 also t_im = 1 - ie_j and 1 - io_j)
+// are taken once for all rows; column 1 is its own instantiation, so the
+// free-start terms leave the loop.
+template <int L, int R, bool POS>
 struct GeneralTile {
   static constexpr int LOG_L = L == 8 ? 3 : (L == 16 ? 4 : 5);
-  float t_mm, t_dm, t_im, t_mi, t_md, t_ii, t_dd;
-  float ks[LOG_L];  // factor of the carry at Kogge-Stone step k: t_dd^(R*2^k)
-  float tpow[R];    // t_dd^r
+  float t_mm, t_dm, t_im, t_mi, t_md, t_ii, t_dd;  // K4: t_im, t_mi, t_ii per column
+  float ks[LOG_L];  // factor of the carry at Kogge-Stone step k: K3 t_dd^(R*2^k),
+                    // K4 the product of de over the 2^k lanes it spans
+  float tpow[R];    // K3 t_dd^r, K4 de(p0+1) * ... * de(p0+r)
+  float dop[R + 1], dex[R + 1];  // K4: do, de of rows p0 .. p0+R (the next lane's first)
+  float tdm[R];     // K4: 1 - de of rows p0 .. p0+R-1
+  float c_io = 0.0f;  // K4: 1 - io_j of the column
   float w[R];       // 1 on the item's allele rows, 0 past alen
   int al[R];        // allele bytes, upper case
   int g;
@@ -566,21 +590,43 @@ struct GeneralTile {
   float i0 = 0.0f, scale = 0.0f;  // i0: I before allele position 1
   float fin_m = 0.0f, fin_i = 0.0f, fin_i0 = 0.0f, fin_scale = 0.0f;  // at j = rlen
 
-  __device__ __forceinline__ void init(const float* coef, const uint8_t* row, int Xp,
-                                       int alen, int lane) {
-    t_mm = coef[0], t_dm = coef[1], t_im = coef[2], t_mi = coef[3];
-    t_md = coef[4], t_ii = coef[5], t_dd = coef[6];
+  // coef: K3's [7] constants; gdo / gde: K4's do / de rows of the item
+  __device__ __forceinline__ void init(const float* coef, const float* gdo, const float* gde,
+                                       const uint8_t* row, int Xp, int alen, int lane) {
     g = lane;
     const int p0 = g * R;
-    float a = powf(t_dd, (float)R);
+    if constexpr (POS) {
 #pragma unroll
-    for (int k = 0; k < LOG_L; ++k) {
-      ks[k] = a;
-      a *= a;
+      for (int r = 0; r <= R; ++r) {
+        const int p = p0 + r;
+        dop[r] = p < Xp ? gdo[p] : 0.0f;
+        dex[r] = p < Xp ? gde[p] : 0.0f;
+      }
+      tpow[0] = 1.0f;
+#pragma unroll
+      for (int r = 1; r < R; ++r) tpow[r] = tpow[r - 1] * dex[r];
+      float a = tpow[R - 1] * dex[R];  // the lane's product of de
+#pragma unroll
+      for (int k = 0; k < LOG_L; ++k) {
+        ks[k] = a;
+        const float v = __shfl_up_sync(FULL, a, 1 << k, L);
+        if (g >= (1 << k)) a *= v;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) tdm[r] = 1.0f - dex[r];
+    } else {
+      t_mm = coef[0], t_dm = coef[1], t_im = coef[2], t_mi = coef[3];
+      t_md = coef[4], t_ii = coef[5], t_dd = coef[6];
+      float a = powf(t_dd, (float)R);
+#pragma unroll
+      for (int k = 0; k < LOG_L; ++k) {
+        ks[k] = a;
+        a *= a;
+      }
+      tpow[0] = 1.0f;
+#pragma unroll
+      for (int r = 1; r < R; ++r) tpow[r] = tpow[r - 1] * t_dd;
     }
-    tpow[0] = 1.0f;
-#pragma unroll
-    for (int r = 1; r < R; ++r) tpow[r] = tpow[r - 1] * t_dd;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int p = p0 + r;
@@ -590,8 +636,16 @@ struct GeneralTile {
     }
   }
 
+  // oj, ej: K4's io_j, ie_j of the column
   template <bool FIRST>
-  __device__ __forceinline__ void column(int j, int rlen, int rj, float mj) {
+  __device__ __forceinline__ void column(int j, int rlen, int rj, float mj, float oj,
+                                         float ej) {
+    if constexpr (POS) {
+      t_mi = oj;
+      t_ii = ej;
+      t_im = 1.0f - ej;
+      c_io = 1.0f - oj;
+    }
     const float em_match = 1.0f - mj;
     const float em_mis = rj == 'N' ? 0.25f : mj * (1.0f / 3.0f);
     const float mi = mj * t_mi, ii = mj * t_ii;
@@ -615,7 +669,11 @@ struct GeneralTile {
         const float ds = r >= 1 ? d[r > 0 ? r - 1 : 0] : ud;
         const float is = r >= 1 ? ip[r > 0 ? r - 1 : 0] : ui;
         const float e = w[r] * (al[r] == rj ? em_match : em_mis);
-        const float mc = e * (t_mm * ms + t_dm * ds + t_im * is);
+        // K4: t_mm = max(1 - io_j - do_k, 1e-12) rounded as the plain version
+        // rounds it, t_dm = 1 - de_k
+        const float tmm = POS ? fmaxf(c_io - dop[r], 1e-12f) : t_mm;
+        const float tdm_r = POS ? tdm[r] : t_dm;
+        const float mc = e * (tmm * ms + tdm_r * ds + t_im * is);
         const float ic = mi * m[r] + ii * ip[r];
         m[r] = mc;
         ip[r] = ic;
@@ -638,13 +696,14 @@ struct GeneralTile {
       scale += LOG_RESCALE;
     }
 
-    // D of this column: E(k) = D(k+1) = t_md*M(k) + t_dd*E(k-1), scanned in
-    // the lane from a zero carry, then E(p0-1) carried in from the lanes to
-    // the left
+    // D of this column: E(k) = D(k+1) = t_md*M(k) + t_dd*E(k-1) (K4:
+    // do(k+1), de(k+1)), scanned in the lane from a zero carry, then E(p0-1)
+    // carried in from the lanes to the left
     float e_loc[R];
-    e_loc[0] = t_md * m[0];
+    e_loc[0] = (POS ? dop[1] : t_md) * m[0];
 #pragma unroll
-    for (int r = 1; r < R; ++r) e_loc[r] = t_md * m[r] + t_dd * e_loc[r - 1];
+    for (int r = 1; r < R; ++r)
+      e_loc[r] = (POS ? dop[r + 1] : t_md) * m[r] + (POS ? dex[r + 1] : t_dd) * e_loc[r - 1];
     float incl = e_loc[R - 1];
 #pragma unroll
     for (int k = 0; k < LOG_L; ++k) {
@@ -670,10 +729,45 @@ struct GeneralTile {
   }
 };
 
-// K3 for Xp <= L*R <= 1024: L lanes per item, 32/L items per warp, one warp
-// per block.  The warp runs to its longest read; each item's sums are taken
-// at its own rlen and written after the loop.  A group past B repeats the
-// last item and writes nothing.
+// K3 (POS false) or K4 for Xp <= L*R <= 1024: L lanes per item, 32/L items
+// per warp, one warp per block.  The warp runs to its longest read; each
+// item's sums are taken at its own rlen and written after the loop.  A group
+// past B repeats the last item and writes nothing.
+template <int L, int R, bool POS>
+__device__ __forceinline__ void tiled_forward(const uint8_t* __restrict__ allele,
+                                              const uint8_t* __restrict__ read,
+                                              const uint8_t* __restrict__ qual,
+                                              const int* __restrict__ alen_p,
+                                              const int* __restrict__ rlen_p,
+                                              const float* __restrict__ coef,
+                                              const GapPanels& gp,
+                                              float* __restrict__ out, int B, int Xp,
+                                              int Yp) {
+  const int g = threadIdx.x & (L - 1);
+  const int slot = blockIdx.x * (32 / L) + threadIdx.x / L;
+  const long long item = min(slot, B - 1);
+  GeneralTile<L, R, POS> t;
+  t.init(coef, POS ? gp.dop + item * Xp : nullptr, POS ? gp.dep + item * Xp : nullptr,
+         allele + item * Xp, Xp, alen_p[item], g);
+  const int rlen = min(max(rlen_p[item], 1), Yp);
+  const int jmax = __reduce_max_sync(FULL, rlen);
+  GroupCursor<L, POS> rc{read + item * Yp, qual + item * Yp,
+                         POS ? gp.io + item * Yp : nullptr,
+                         POS ? gp.ie + item * Yp : nullptr, Yp};
+  int rj;
+  float mj, oj = 0.0f, ej = 0.0f;
+  rc.get(1, g, rj, mj, oj, ej);
+  t.template column<true>(1, rlen, rj, mj, oj, ej);
+  for (int j = 2; j <= jmax; ++j) {
+    rc.get(j, g, rj, mj, oj, ej);
+    t.template column<false>(j, rlen, rj, mj, oj, ej);
+  }
+  const float m_sum = group_sum<L>(t.fin_m);
+  const float i_sum = group_sum<L>(t.fin_i);
+  const float fin = m_sum + i_sum + t.fin_i0;
+  if (g == 0 && slot < B) out[item] = (fin > 0.0f ? logf(fin) : EMPTY) - t.fin_scale;
+}
+
 template <int L, int R>
 __global__ void __launch_bounds__(32)
 pairhmm_general_tiled_kernel(const uint8_t* __restrict__ allele,
@@ -683,41 +777,27 @@ pairhmm_general_tiled_kernel(const uint8_t* __restrict__ allele,
                              const int* __restrict__ rlen_p,
                              const float* __restrict__ coef,
                              float* __restrict__ out, int B, int Xp, int Yp) {
-  const int g = threadIdx.x & (L - 1);
-  const int slot = blockIdx.x * (32 / L) + threadIdx.x / L;
-  const long long item = min(slot, B - 1);
-  GeneralTile<L, R> t;
-  t.init(coef, allele + item * Xp, Xp, alen_p[item], g);
-  const int rlen = min(max(rlen_p[item], 1), Yp);
-  const int jmax = __reduce_max_sync(FULL, rlen);
-  GroupCursor<L> rc{read + item * Yp, qual + item * Yp, Yp};
-  int rj;
-  float mj;
-  rc.get(1, g, rj, mj);
-  t.template column<true>(1, rlen, rj, mj);
-  for (int j = 2; j <= jmax; ++j) {
-    rc.get(j, g, rj, mj);
-    t.template column<false>(j, rlen, rj, mj);
-  }
-  const float m_sum = group_sum<L>(t.fin_m);
-  const float i_sum = group_sum<L>(t.fin_i);
-  const float fin = m_sum + i_sum + t.fin_i0;
-  if (g == 0 && slot < B) out[item] = (fin > 0.0f ? logf(fin) : EMPTY) - t.fin_scale;
+  tiled_forward<L, R, false>(allele, read, qual, alen_p, rlen_p, coef, GapPanels{}, out,
+                             B, Xp, Yp);
 }
 
-// K3's tiles (lanes per item, rows per lane) of the kernel above;
+template <int L, int R>
+__global__ void __launch_bounds__(32)
+pairhmm_positional_tiled_kernel(const uint8_t* __restrict__ allele,
+                                const uint8_t* __restrict__ read,
+                                const uint8_t* __restrict__ qual,
+                                const int* __restrict__ alen_p,
+                                const int* __restrict__ rlen_p, const GapPanels gp,
+                                float* __restrict__ out, int B, int Xp, int Yp) {
+  tiled_forward<L, R, true>(allele, read, qual, alen_p, rlen_p, nullptr, gp, out, B, Xp,
+                            Yp);
+}
+
+// The tiles (lanes per item, rows per lane) of K3's and K4's kernels above;
 // ops/pairhmm_column.py:GENERAL_TILES lists the same pairs.
 #define VLT_GENERAL_TILES(X)                                                 \
   X(8, 4) X(8, 8) X(8, 12) X(8, 16) X(16, 6) X(16, 8) X(16, 10) X(16, 12)    \
   X(16, 16) X(32, 5) X(32, 6) X(32, 8) X(32, 12) X(32, 16) X(32, 24) X(32, 32)
-
-// Rows per lane: the smallest power of two >= per_lane (at least 2, for
-// the i-2 shift).
-int pick_r(int per_lane) {
-  int r = 2;
-  while (r < per_lane) r *= 2;
-  return r;
-}
 
 enum Kind { EXACT, GENERAL, POSITIONAL };
 
@@ -734,29 +814,32 @@ void launch_r(dim3 grid, dim3 block, cudaStream_t st, const uint8_t* allele,
         allele, read, qual, alen, rlen, coef, gp, out, B, Xp, Yp, W);
 }
 
-template <Kind K>
-int launch(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
-           const int* alen, const int* rlen, const float* coef,
-           const GapPanels& gp, float* out, int B, int Xp, int Yp,
-           void* stream) {
+// K2: one warp per item, R rows per lane (the smallest power of two >=
+// Xp/32, at least 2 for the i-2 shift); W warps of 32 rows per lane, one
+// block per item, over 1024 rows.
+int launch_exact(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
+                 const int* alen, const int* rlen, const float* coef, float* out,
+                 int B, int Xp, int Yp, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (Xp <= 0 || Yp <= 0 || Xp > MAX_WARPS * 32 * 32)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (Xp > 32 * 32) {  // W warps of 32 rows per lane, one block per item
+  if (Xp > 32 * 32) {
     const int W = (Xp + 32 * 32 - 1) / (32 * 32);
-    launch_r<K, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual, alen,
-                          rlen, coef, gp, out, B, Xp, Yp, W);
+    launch_r<EXACT, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual, alen, rlen,
+                              coef, GapPanels{}, out, B, Xp, Yp, W);
     return (int)cudaGetLastError();
   }
   const dim3 grid((B + ITEMS_PER_BLOCK - 1) / ITEMS_PER_BLOCK);
   const dim3 block(32 * ITEMS_PER_BLOCK);
-#define VLT_CASE(r)                                                          \
-  case r:                                                                    \
-    launch_r<K, r, false>(grid, block, st, allele, read, qual, alen, rlen,   \
-                          coef, gp, out, B, Xp, Yp, 1);                      \
+  int r = 2;
+  while (r < (Xp + 31) / 32) r *= 2;
+#define VLT_CASE(rows)                                                       \
+  case rows:                                                                 \
+    launch_r<EXACT, rows, false>(grid, block, st, allele, read, qual, alen,  \
+                                 rlen, coef, GapPanels{}, out, B, Xp, Yp, 1); \
     break;
-  switch (pick_r((Xp + 31) / 32)) {
+  switch (r) {
     VLT_CASE(2) VLT_CASE(4) VLT_CASE(8) VLT_CASE(16) VLT_CASE(32)
     default: return (int)cudaErrorInvalidValue;
   }
@@ -764,12 +847,14 @@ int launch(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
   return (int)cudaGetLastError();
 }
 
-// K3: the tile (lanes, rows) is the caller's; Xp > 1024 takes the
-// multi-warp kernel above, as tile (32, 32).
-int launch_general(const uint8_t* allele, const uint8_t* read,
-                   const uint8_t* qual, const int* alen, const int* rlen,
-                   const float* coef, float* out, int B, int Xp, int Yp,
-                   int lanes, int rows, void* stream) {
+// K3 (POS false) and K4: the tile (lanes, rows) is the caller's; Xp > 1024
+// takes the multi-warp kernel above, as tile (32, 32).
+template <bool POS>
+int launch_tiled(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
+                 const int* alen, const int* rlen, const float* coef,
+                 const GapPanels& gp, float* out, int B, int Xp, int Yp, int lanes,
+                 int rows, void* stream) {
+  constexpr Kind K = POS ? POSITIONAL : GENERAL;
   if (B <= 0) return (int)cudaSuccess;
   if (Xp <= 0 || Yp <= 0 || Xp > MAX_WARPS * 32 * 32)
     return (int)cudaErrorInvalidValue;
@@ -777,16 +862,20 @@ int launch_general(const uint8_t* allele, const uint8_t* read,
   if (Xp > 32 * 32) {
     if (lanes != 32 || rows != 32) return (int)cudaErrorInvalidValue;
     const int W = (Xp + 32 * 32 - 1) / (32 * 32);
-    launch_r<GENERAL, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual, alen,
-                                rlen, coef, GapPanels{}, out, B, Xp, Yp, W);
+    launch_r<K, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual, alen, rlen, coef,
+                          gp, out, B, Xp, Yp, W);
     return (int)cudaGetLastError();
   }
   if (lanes * rows < Xp) return (int)cudaErrorInvalidValue;
   const dim3 grid((B + 32 / lanes - 1) / (32 / lanes));
 #define VLT_TILE(l, r)                                                      \
   if (lanes == l && rows == r) {                                            \
-    pairhmm_general_tiled_kernel<l, r><<<grid, 32, 0, st>>>(                \
-        allele, read, qual, alen, rlen, coef, out, B, Xp, Yp);              \
+    if constexpr (POS)                                                      \
+      pairhmm_positional_tiled_kernel<l, r><<<grid, 32, 0, st>>>(           \
+          allele, read, qual, alen, rlen, gp, out, B, Xp, Yp);              \
+    else                                                                    \
+      pairhmm_general_tiled_kernel<l, r><<<grid, 32, 0, st>>>(              \
+          allele, read, qual, alen, rlen, coef, out, B, Xp, Yp);            \
     return (int)cudaGetLastError();                                         \
   }
   VLT_GENERAL_TILES(VLT_TILE)
@@ -801,15 +890,14 @@ int launch_general(const uint8_t* allele, const uint8_t* read,
 // and qual [B, Yp] uint8 row-major; alen, rlen [B] int32; coef [4] (K2:
 // t_mm, t_dm*t_md, t_im*t_mi, t_mi) or [7] (K3: t_mm, t_dm, t_im, t_mi, t_md,
 // t_ii, t_dd) float32; K4: io, ie [B, Yp] and do, de [B, Xp] float32
-// LINEAR; out [B] float32.  K3 also takes its tile: lanes per item and allele
-// rows per lane, one of VLT_GENERAL_TILES with lanes*rows >= Xp, or (32, 32)
-// for Xp > 1024.
+// LINEAR; out [B] float32.  K3 and K4 also take their tile: lanes per item
+// and allele rows per lane, one of VLT_GENERAL_TILES with lanes*rows >= Xp,
+// or (32, 32) for Xp > 1024.
 extern "C" int vlt_pairhmm_exact(const uint8_t* allele, const uint8_t* read,
                                  const uint8_t* qual, const int* alen,
                                  const int* rlen, const float* coef, float* out,
                                  int B, int Xp, int Yp, void* stream) {
-  return launch<EXACT>(allele, read, qual, alen, rlen, coef, GapPanels{}, out,
-                       B, Xp, Yp, stream);
+  return launch_exact(allele, read, qual, alen, rlen, coef, out, B, Xp, Yp, stream);
 }
 
 extern "C" int vlt_pairhmm_general(const uint8_t* allele, const uint8_t* read,
@@ -817,8 +905,8 @@ extern "C" int vlt_pairhmm_general(const uint8_t* allele, const uint8_t* read,
                                    const int* rlen, const float* coef,
                                    float* out, int B, int Xp, int Yp,
                                    int lanes, int rows, void* stream) {
-  return launch_general(allele, read, qual, alen, rlen, coef, out, B, Xp, Yp,
-                        lanes, rows, stream);
+  return launch_tiled<false>(allele, read, qual, alen, rlen, coef, GapPanels{}, out, B,
+                             Xp, Yp, lanes, rows, stream);
 }
 
 extern "C" int vlt_pairhmm_positional(const uint8_t* allele,
@@ -827,8 +915,8 @@ extern "C" int vlt_pairhmm_positional(const uint8_t* allele,
                                       const float* io, const float* ie,
                                       const float* dop, const float* dep,
                                       float* out, int B, int Xp, int Yp,
-                                      void* stream) {
-  return launch<POSITIONAL>(allele, read, qual, alen, rlen, nullptr,
-                            GapPanels{io, ie, dop, dep}, out, B, Xp, Yp,
+                                      int lanes, int rows, void* stream) {
+  return launch_tiled<true>(allele, read, qual, alen, rlen, nullptr,
+                            GapPanels{io, ie, dop, dep}, out, B, Xp, Yp, lanes, rows,
                             stream);
 }

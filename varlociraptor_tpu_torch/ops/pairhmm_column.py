@@ -24,7 +24,8 @@ constants, indexed as ``pallas_pairhmm.py:_general_body`` indexes them:
 t_mm = max(1 - io_j - do_k, 1e-12), t_dm = 1 - de_k (unclamped, times
 D(k-1) of the previous column), t_im = 1 - ie_j, t_mi = io_j, t_ii = ie_j,
 and D(k) = do_k*M(k-1) + de_k*D(k-1).  :func:`positional_gaps` builds the
-four LINEAR panels on the device from the packed bytes.
+four LINEAR panels on the device from the packed bytes.  On the card it
+runs on K3's tiled layout, at the tile :func:`positional_tile` picks.
 
 All three work in linear-space float32.  A work item whose column maximum falls
 below 1e-16 is multiplied by 1e16 (its log scale is kept aside), start and
@@ -53,9 +54,9 @@ EMPTY = -1e30  # result of an empty read (and of a read with no alignment)
 # largest allele panel the kernels take: 32 warps x 32 lanes x 32 positions
 MAX_XP = 32 * 32 * 32
 _LN10_10 = math.log(10.0) / 10.0
-# K3's tiles up to Xp = 1024, (lanes per item, allele rows per lane), as
-# csrc/pairhmm_column.cu:VLT_GENERAL_TILES instantiates them; wider panels
-# take the multi-warp kernel, tile (32, 32)
+# K3's and K4's tiles up to Xp = 1024, (lanes per item, allele rows per
+# lane), as csrc/pairhmm_column.cu:VLT_GENERAL_TILES instantiates them for
+# both kernels; wider panels take the multi-warp kernel, tile (32, 32)
 GENERAL_TILES = ((8, 4), (8, 8), (8, 12), (8, 16), (16, 6), (16, 8), (16, 10), (16, 12),
                  (16, 16), (32, 5), (32, 6), (32, 8), (32, 12), (32, 16), (32, 24), (32, 32))
 # called around every kernel launch when set (see _launch)
@@ -75,6 +76,24 @@ def general_tile(Xp, max_rows=None, lanes=None):
     fits = [t for t in GENERAL_TILES if t[0] * t[1] >= Xp]
     pick = [t for t in fits if t[1] <= (max_rows or t[1]) and t[0] == (lanes or t[0])]
     return min(pick or fits, key=lambda t: (t[0] * t[1], t[0] != 16, t[0]))
+
+
+def positional_tile(Xp):
+    """K4's tile (lanes, rows) for an allele panel of Xp rows: of the tiles
+    that cover Xp, the one with the fewest padded rows, then the fewest
+    lanes; (32, 32) over 1024 rows.  It differs from :func:`general_tile`
+    at 65-128 rows, where it takes 8 lanes.  K4 holds do / de / 1 - de per
+    row on top of K3's registers: on an H100 (PERF.md §6) (16, 8) takes
+    113 and (8, 16) 168, so a scheduler's 16K registers keep 4 warps of
+    (16, 8), 8 items, or 3 of (8, 16), 12 items.  The main path's 128-row
+    launches hold ~4,300 items, past the 4,224 that one wave of (16, 8)
+    takes on 132 SMs: (8, 16) takes 11% less time at 4,326 items and 2.5%
+    less on the main path's own launches, (16, 8) 6% less at 4,220 items.
+    At 160 and 256 rows 16 lanes take 24% and 9% less time than 32."""
+    if Xp > 32 * 32:
+        return (32, 32)
+    return min((t for t in GENERAL_TILES if t[0] * t[1] >= Xp),
+               key=lambda t: (t[0] * t[1], t[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -452,17 +471,23 @@ def exact_forward(allele, read, qual, alen, rlen, coef):
 exact_forward.launches = 0
 
 
+def _tile_for(name, Xp, tile, policy):
+    """``tile`` (default ``policy(Xp)``) as a tuple, if it takes a panel of
+    Xp rows: one of GENERAL_TILES covering Xp, or (32, 32) over 1024 rows."""
+    tile = policy(Xp) if tile is None else tuple(tile)
+    fits = tile == (32, 32) if Xp > 32 * 32 else tile[0] * tile[1] >= Xp
+    if tile not in GENERAL_TILES or not fits:
+        raise ValueError(f"{name}: tile {tile} does not take Xp = {Xp}")
+    return tile
+
+
 def general_forward(allele, read, qual, alen, rlen, coef, tile=None):
     """K3: [B] f32 log forward probabilities, constant finite extensions.
     CPU tensors: the plain version.  CUDA tensors: the kernel at ``tile``
     (lanes, rows), by default :func:`general_tile` of the panel width
     (counted in ``general_forward.launches``)."""
     _check("general_forward", allele, read, qual, alen, rlen, coef, 7)
-    Xp = allele.shape[1]
-    tile = general_tile(Xp) if tile is None else tuple(tile)
-    fits = tile == (32, 32) if Xp > 32 * 32 else tile[0] * tile[1] >= Xp
-    if tile not in GENERAL_TILES or not fits:
-        raise ValueError(f"general_forward: tile {tile} does not take Xp = {Xp}")
+    tile = _tile_for("general_forward", allele.shape[1], tile, general_tile)
     if allele.device.type == "cpu":
         return general_forward_reference(allele, read, qual, alen, rlen, coef)
     if allele.device.type != "cuda":
@@ -475,18 +500,20 @@ def general_forward(allele, read, qual, alen, rlen, coef, tile=None):
 general_forward.launches = 0
 
 
-def positional_forward(allele, read, qual, alen, rlen, io, ie, do, de):
+def positional_forward(allele, read, qual, alen, rlen, io, ie, do, de, tile=None):
     """K4: [B] f32 log forward probabilities with per-position gaps (the
     LINEAR panels of :func:`positional_gaps`).  CPU tensors: the plain
-    version.  CUDA tensors: the kernel (counted in
+    version.  CUDA tensors: the kernel at ``tile`` (lanes, rows), by default
+    :func:`positional_tile` of the panel width (counted in
     ``positional_forward.launches``)."""
     gaps = (io, ie, do, de)
     _check("positional_forward", allele, read, qual, alen, rlen, gaps=gaps)
+    tile = _tile_for("positional_forward", allele.shape[1], tile, positional_tile)
     if allele.device.type == "cpu":
         return positional_forward_reference(allele, read, qual, alen, rlen, *gaps)
     if allele.device.type != "cuda":
         raise ValueError(f"positional_forward: unsupported device {allele.device}")
-    out = _launch("vlt_pairhmm_positional", allele, read, qual, alen, rlen, *gaps)
+    out = _launch("vlt_pairhmm_positional", allele, read, qual, alen, rlen, *gaps, tile=tile)
     positional_forward.launches += 1
     return out
 

@@ -18,15 +18,16 @@ the JAX package ``varlociraptor_tpu``:
                        timed with CUDA events after a warm-up.
   (a') pairhmm_vs_plain
                        K2 and K3 against their plain torch versions on the
-                       card: 4096 x 160 x 100, 16384 x 256 x 150 and the K3
-                       main-path shape (K3_MAIN_SHAPE) items (allele x
-                       read), the ragged _synth set, the edge sets (empty
-                       read, N / lowercase, read longer than its allele,
-                       250-base low-quality reads, the long deletion chain,
-                       alleles over 1024 bases) and K3's tile sets (reads of
-                       1-100 bases in one warp, allele lengths off the rows
-                       per lane, panel widths 32-1056); the three shapes
-                       timed with CUDA events.
+                       card: 4096 x 160 x 100, 16384 x 256 x 150 and the K2
+                       and K3 main-path shapes (K2_MAIN_SHAPE,
+                       K3_MAIN_SHAPE) items (allele x read), the ragged
+                       _synth set, the edge sets (empty read, N / lowercase,
+                       read longer than its allele, 250-base low-quality
+                       reads, the long deletion chain, alleles over 1024
+                       bases) and the tile sets (reads of 1-100 bases in
+                       one warp, allele lengths off the rows per lane,
+                       panel widths 32-1056); each case names the kernel's
+                       tile; the four shapes timed with CUDA events.
   (a'') positional_vs_plain
                        K4 against its plain torch version on the card, on the
                        sets of (a') and at K4's main-path shape
@@ -53,8 +54,11 @@ the JAX package ``varlociraptor_tpu``:
                        variants tumor-normal --device cuda`` and
                        ``filter-calls control-fdr``; the pair-HMM kernels'
                        device time (events around the library call alone,
-                       and around the whole launch helper) and K3's launches
-                       by panel shape.
+                       and around the whole launch helper), K2's and K3's
+                       launches by panel shape and tile, and their first 8
+                       launches re-timed warm (their inputs saved to
+                       build/chip_smoke/k2_main_launches.pt and
+                       k3_main_launches.pt).
   (e) homopolymer      the same at full width with the world's homopolymer
                        profile (runs of 5-12 bases, half of the indels as
                        run-length changes, reads that slip in runs):
@@ -72,7 +76,7 @@ launches counted in phase (c), K2 and K3 with those counted in phase (d)'s
 preprocess steps, K4 with those of phase (e)'s; each with its time, its
 plain version's, and its bound (operations over the float32 peak or bytes
 over the memory rate, whichever is larger, on that kernel's timed inputs;
-K2-K4 at 16384 x 256 x 150, K3 and K4 also at their main-path shapes,
+K2-K4 at 16384 x 256 x 150, and each also at its main-path shape,
 ``main_path_shape``, with the tile); no single PyTorch call computes any of them
 (library_ms null); the last
 line is
@@ -103,18 +107,23 @@ K4_REPLACES = "varlociraptor_tpu/ops/pallas_pairhmm.py:296"
 # association; -1e30 (impossible) must match exactly
 K23_TOL = 1e-4
 # phase (a')'s timed pair-HMM shapes (items x allele x read): the bench
-# shape, and the K3 launch shape that carries the most cells on phase (d)'s
-# main path (its median items per launch, the panel width, 100-base reads;
-# from phase (d)'s k3_shapes record); phase (a'') times K4 at the same two
-# and at K4's main-path shape (phase (e)'s k4_shapes record)
+# shapes, and the K2 and K3 launch shapes that carry the most cells on phase
+# (d)'s main path (their median items per launch, the panel width, 100-base
+# reads; from phase (d)'s k2_shapes and k3_shapes records); phase (a'')
+# times K4 at the same and at K4's main-path shape (phase (e)'s k4_shapes
+# record)
 BENCH_SET = "b16384_x256_y150"
+K2_MAIN_SHAPE = (4394, 128, 100)
+K2_MAIN_SET = "b{}_x{}_y{}_k2main".format(*K2_MAIN_SHAPE)
 K3_MAIN_SHAPE = (4408, 128, 100)
 MAIN_SET = "b{}_x{}_y{}_main".format(*K3_MAIN_SHAPE)
 K4_MAIN_SHAPE = (4326, 128, 100)
 K4_MAIN_SET = "b{}_x{}_y{}_k4main".format(*K4_MAIN_SHAPE)
+TIMED_SETS = ("b4096_x160_y100", BENCH_SET, K2_MAIN_SET, MAIN_SET, K4_MAIN_SET)
 # phases (d) and (e) re-time their first K3 / K4 launches warm and save
 # their inputs
 RERUN = 8
+K2_LAUNCHES_FILE = "k2_main_launches.pt"
 K3_LAUNCHES_FILE = "k3_main_launches.pt"
 K4_LAUNCHES_FILE = "k4_main_launches.pt"
 # log gap params (t_mi, t_md, t_ii, t_dd): the default zero-extension model
@@ -440,10 +449,10 @@ def pairhmm_sets():
         pairhmm_tile_items,
     )
 
-    B, X, Y = K3_MAIN_SHAPE
     sets = [("b4096_x160_y100", *pairhmm_shape_items(4096, 160, 100, seed=1)),
             (BENCH_SET, *pairhmm_shape_items(16384, 256, 150, seed=2)),
-            (MAIN_SET, *pairhmm_shape_items(B, X, Y, seed=4)),
+            (K2_MAIN_SET, *pairhmm_shape_items(*K2_MAIN_SHAPE, seed=6)),
+            (MAIN_SET, *pairhmm_shape_items(*K3_MAIN_SHAPE, seed=4)),
             ("synth_ragged", *pairhmm_items(21, 3))]
     sets += [(name, *items) for name, items in pairhmm_edge_items().items()]
     sets += [(name, *items) for name, items in pairhmm_tile_items().items()]
@@ -453,8 +462,8 @@ def pairhmm_sets():
 def pairhmm_case(kind, name, fn, ref_fn, dev, timer):
     """One pair-HMM kernel against its plain version on the same device
     tensors (allele, read, qual, alen, rlen, ...): the same finiteness and
-    -1e30 items, the rest within K23_TOL x max(1, |x|); at 4096 items and
-    more both are timed."""
+    -1e30 items, the rest within K23_TOL x max(1, |x|); on the sets of
+    TIMED_SETS both are timed."""
     import numpy as np
     import torch
 
@@ -474,7 +483,7 @@ def pairhmm_case(kind, name, fn, ref_fn, dev, timer):
     case = {"kernel": kind, "case": name, "B": n, "Xp": Xp, "Yp": dev[1].shape[1],
             "impossible": int((~live).sum()), "max_abs_err": float(err.max()),
             "max_rel_err": rel}
-    if n >= 4096:
+    if name in TIMED_SETS:
         case["ms"] = timer(lambda: fn(*dev), 10, ahead=True)
         case["plain_ms"] = timer(lambda: ref_fn(*dev), 2)
         # the cells these items need (allele length x read length), every
@@ -491,6 +500,8 @@ def phase_pairhmm_vs_plain(timer=cuda_ms):
 
     out = {"phase": "pairhmm_vs_plain", "tol_rel": K23_TOL, "cases": []}
     worst = {"exact": 0.0, "general": 0.0}
+    main_sets = {"exact": K2_MAIN_SET, "general": MAIN_SET}
+    tile_of = {"exact": phc.exact_tile, "general": phc.general_tile}
     bench, main = {}, {}
     for name, alleles, reads, quals in pairhmm_sets():
         for kind, gap in (("exact", GAP_ZERO), ("general", GAP_ONT)):
@@ -500,12 +511,11 @@ def phase_pairhmm_vs_plain(timer=cuda_ms):
             dev = phc.to_device(args, "cuda")
             case = pairhmm_case(kind, name, getattr(phc, f"{kind}_forward"),
                                 getattr(phc, f"{kind}_forward_reference"), dev, timer)
-            if kind == "general":
-                case["tile"] = list(phc.general_tile(case["Xp"]))
+            case["tile"] = list(tile_of[kind](case["Xp"]))
             worst[kind] = max(worst[kind], case["max_abs_err"])
             if name == BENCH_SET:
                 bench[kind] = case
-            elif name == MAIN_SET:
+            elif name == main_sets[kind]:
                 main[kind] = case
             out["cases"].append(case)
     out["max_abs_err"] = worst
@@ -545,7 +555,7 @@ def phase_positional_vs_plain(timer=cuda_ms):
 
 
 def shape_record(launches):
-    """K3's or K4's launches by panel shape (Xp x Yp): launches, items, the cells
+    """K2's, K3's or K4's launches by panel shape (Xp x Yp): launches, items, the cells
     the items need (sum of alen x rlen), the allele rows the kernel computes
     (B x the tile's rows), kernel and around-launch ms; the median items per
     launch; and the (B, Xp, Yp) of the shape that carries the most cells
@@ -586,9 +596,9 @@ def timed_pairhmm():
     """Device time and work items of every K2 / K3 / K4 launch inside the
     block, from CUDA events recorded through ``pairhmm_column.launch_hook``
     (counts untouched): "ms" brackets the library call alone, "around_ms"
-    the whole launch helper with its host work; K3's and K4's launches also
-    by shape (:func:`shape_record`, "shapes"), and their first RERUN
-    launches ("first")."""
+    the whole launch helper with its host work; the launches also by shape
+    (:func:`shape_record`, "shapes"), and the first RERUN launches of each
+    ("first")."""
     import torch
 
     from varlociraptor_tpu_torch.ops import pairhmm_column as phc
@@ -623,7 +633,7 @@ def timed_pairhmm():
                          "around_ms": sum(r["around_ms"] for r in mine),
                          "forwards": sum(r["allele"].shape[0] for r in mine)}
         stats["shapes"], stats["first"] = {}, {}
-        for fn in ("vlt_pairhmm_general", "vlt_pairhmm_positional"):
+        for fn in ("vlt_pairhmm_exact", "vlt_pairhmm_general", "vlt_pairhmm_positional"):
             mine = [r for r in launches if r["fn"] == fn]
             stats["shapes"][fn] = shape_record(mine)
             stats["first"][fn] = mine[:RERUN]
@@ -846,6 +856,9 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
     res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
     pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"]
                   + secs["preprocess_normal_other_model"])
+    res["k2_shapes"] = hmm_stats["shapes"]["vlt_pairhmm_exact"]
+    res["k2_warm_rerun"] = warm_rerun(hmm_stats["first"]["vlt_pairhmm_exact"],
+                                      work / K2_LAUNCHES_FILE)
     res["k3_shapes"] = hmm_stats["shapes"]["vlt_pairhmm_general"]
     res["k3_warm_rerun"] = warm_rerun(hmm_stats["first"]["vlt_pairhmm_general"],
                                       work / K3_LAUNCHES_FILE)
@@ -979,8 +992,7 @@ def main():
         "name": f"pairhmm_{kind}", "route": "cuda", "source": K23_SOURCE,
         "replaces": replaces, "launches": hmm_launches[kind],
         "max_abs_err": a2["max_abs_err"][kind], **timing(hmm_bench[kind]),
-        "library_ms": None,
-        **(main_shape(hmm_main["general"]) if kind == "general" else {}),
+        "library_ms": None, **main_shape(hmm_main[kind]),
     } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))] + [{
         "name": "pairhmm_positional", "route": "cuda", "source": K23_SOURCE,
         "replaces": K4_REPLACES, "launches": hp_launches["positional"],

@@ -1,6 +1,6 @@
-"""K3 or K4 tile variants, and earlier pair-HMM libraries, timed against each other on one card.
+"""Pair-HMM tile variants, and earlier pair-HMM libraries, timed against each other on one card.
 
-    python scripts/torch_k3_variants.py [--kernel general|positional]
+    python scripts/torch_k3_variants.py [--kernel exact|general|positional]
         [--old OLD.cu ...] [--variants new new:r8 new:l32 OLD ...]
         [--real LAUNCHES.pt] [--rounds 5] [--out DIR]
 
@@ -8,29 +8,29 @@ Builds ``varlociraptor_tpu_torch/csrc/pairhmm_column.cu`` ("new") and each
 ``--old`` source (an earlier ``pairhmm_column.cu``, e.g. ``git show
 <commit>:varlociraptor_tpu_torch/csrc/pairhmm_column.cu``, named by its file
 stem) with ``-Xptxas -v``, one nvcc per source, all at once.  ``--kernel``
-picks the kernel under study: K3 (``general``, the default) or K4
-(``positional``).  A variant is a library and, for a library whose entry of
-that kernel takes a tile, a tile policy: ``:rN`` caps the rows per lane at
-N, ``:lN`` fixes N lanes per item, and the tile is then the one
+picks the kernel under study: K2 (``exact``), K3 (``general``, the default)
+or K4 (``positional``).  A variant is a library and, for a library whose
+entry of that kernel takes a tile, a tile policy: ``:rN`` caps the rows per
+lane at N, ``:lN`` fixes N lanes per item, and the tile is then the one
 ``ops/pairhmm_column.general_tile`` picks under those limits (no suffix:
-the kernel's default, ``general_tile`` or ``positional_tile``).  Each
-variant is held to the kernel's plain version on every set of
-``chip_smoke.py`` phase (a') (K3) or (a'') (K4) (1e-4 x max(1, |x|), the
-same finiteness and -1e30 items), then all variants are timed with CUDA
-events (``chip_smoke.cuda_ms`` with the card held ahead, so that the host
-queues every call before the first runs) in rounds that rotate their
-order, at the three timed shapes
-(4096 x 160 x 100, 16384 x 256 x 150 and the kernel's main-path shape,
-``chip_smoke.K3_MAIN_SHAPE`` or ``K4_MAIN_SHAPE``) and, with ``--real``, on
-the main-path launches that ``chip_smoke.py`` phase (d) (K3) or (e) (K4)
+the kernel's default, ``exact_tile``, ``general_tile`` or
+``positional_tile``).  Each variant is held to the kernel's plain version
+on every set of ``chip_smoke.py`` phase (a') (K2, K3) or (a'') (K4) (1e-4 x
+max(1, |x|), the same finiteness and -1e30 items), then all variants are
+timed with CUDA events (``chip_smoke.cuda_ms`` with the card held ahead, so
+that the host queues every call before the first runs) in rounds that
+rotate their order, at the three timed shapes (4096 x 160 x 100, 16384 x
+256 x 150 and the kernel's main-path shape, ``chip_smoke.K2_MAIN_SHAPE``,
+``K3_MAIN_SHAPE`` or ``K4_MAIN_SHAPE``) and, with ``--real``, on the
+main-path launches that ``chip_smoke.py`` phase (d) (K2, K3) or (e) (K4)
 saved (each held to the plain version too, timed as one run of all of
-them).  The other two pair-HMM kernels of every library (K2 and K4, or K2
-and K3 at ``general_tile``) are timed beside them at the three shapes.
-Prints the card's name and power limit, one JSON line per library
-(registers and spills of each kernel, the other kernels' median ms) and per
-variant (tiles, errors, median ms), and writes all of it to
-DIR/<kernel>_variants.json.  Needs a CUDA device and nvcc; exits non-zero
-without them or when a variant disagrees with the plain version.
+them).  The other two pair-HMM kernels of every library are timed beside
+them at the three shapes, at their default tiles.  Prints the card's name
+and power limit, one JSON line per library (registers and spills of each
+kernel, the other kernels' median ms) and per variant (tiles, errors,
+median ms), and writes all of it to DIR/<kernel>_variants.json.  Needs a
+CUDA device and nvcc; exits non-zero without them or when a variant
+disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ TOL = chip_smoke.K23_TOL
 # per kernel under study: its C entry, plain version, default tile policy,
 # sets and main-path shape
 KERNELS = {
+    "exact": ("vlt_pairhmm_exact", phc.exact_forward_reference, phc.exact_tile,
+              chip_smoke.pairhmm_sets, chip_smoke.K2_MAIN_SET),
     "general": ("vlt_pairhmm_general", phc.general_forward_reference, phc.general_tile,
                 chip_smoke.pairhmm_sets, chip_smoke.MAIN_SET),
     "positional": ("vlt_pairhmm_positional", phc.positional_forward_reference,
@@ -103,8 +105,8 @@ class Library:
         self.lib = ctypes.CDLL(str(path))
         self.tiled = tiled
         p, i = ctypes.c_void_p, ctypes.c_int
-        self.lib.vlt_pairhmm_exact.argtypes = [p] * 7 + [i] * 3 + [p]
-        for fn, n_ptr in (("vlt_pairhmm_general", 7), ("vlt_pairhmm_positional", 10)):
+        for fn, n_ptr in (("vlt_pairhmm_exact", 7), ("vlt_pairhmm_general", 7),
+                          ("vlt_pairhmm_positional", 10)):
             getattr(self.lib, fn).argtypes = [p] * n_ptr + [i] * (5 if tiled[fn] else 3) + [p]
 
     def __call__(self, fn_name, allele, read, *tensors, tile=()):
@@ -153,7 +155,8 @@ def main(argv=None):
     ap.add_argument("--variants", nargs="*", default=["new"],
                     help="LIB[:rN][:lN]: a library (new, or an --old stem) and a tile policy")
     ap.add_argument("--real", help="launches saved by chip_smoke.py phase (d) or (e) "
-                                   f"(build/chip_smoke/{chip_smoke.K3_LAUNCHES_FILE}, "
+                                   f"(build/chip_smoke/{chip_smoke.K2_LAUNCHES_FILE}, "
+                                   f"build/chip_smoke/{chip_smoke.K3_LAUNCHES_FILE}, "
                                    f"build/chip_smoke/homopolymer/{chip_smoke.K4_LAUNCHES_FILE})")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out", default=str(ROOT / "build" / "k3_variants"))
@@ -170,7 +173,8 @@ def main(argv=None):
     jobs.update({Path(p).stem: Path(p) for p in args.old})
     built = _compile(jobs, out_dir / "libs")
     tiled = {name: {fn: re.search(fn + r"\([^)]*int lanes", src.read_text()) is not None
-                    for fn in ("vlt_pairhmm_general", "vlt_pairhmm_positional")}
+                    for fn in ("vlt_pairhmm_exact", "vlt_pairhmm_general",
+                               "vlt_pairhmm_positional")}
              for name, src in jobs.items()}
     libs = {name: Library(lib, tiled[name]) for name, (lib, _) in built.items()}
     variants = {}
@@ -180,7 +184,7 @@ def main(argv=None):
     # the other two kernels of each library, at their default tiles
     others_fn = [fn for fn in ("vlt_pairhmm_exact", "vlt_pairhmm_general",
                                "vlt_pairhmm_positional") if fn != entry]
-    other_tile = {"vlt_pairhmm_exact": lambda Xp: (), "vlt_pairhmm_general": phc.general_tile,
+    other_tile = {"vlt_pairhmm_exact": phc.exact_tile, "vlt_pairhmm_general": phc.general_tile,
                   "vlt_pairhmm_positional": phc.positional_tile}
 
     from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams

@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels on the card: K1 (csrc/ll_classes.cu),
-K2, K3 and K4 (csrc/pairhmm_column.cu), K3 and K4 at every tile.
+K2, K3 and K4 (csrc/pairhmm_column.cu), each of K2-K4 at every tile.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false.  On a machine with an NVIDIA card and nvcc:
@@ -174,16 +174,25 @@ def test_pairhmm_kernel_matches_plain(card, general, name):
     assert np.all(np.abs(items[ok] - cpu[ok]) <= PAIRHMM_TOL * np.maximum(1, np.abs(cpu[ok])))
 
 
-def _k3_against_plain(alleles, reads, quals, card, tile=None):
-    """K3 at ``tile`` (default: general_tile) against its plain version on
-    the card: the same finiteness and -1e30 items, PAIRHMM_TOL."""
-    args, n, _, _ = phc.pack_exact_batch(alleles, reads, quals, GAP_ONT)
-    dev_args = phc.to_device(args[:5] + (phc.general_coef(GAP_ONT),), card)
-    got = phc.general_forward(*dev_args, tile=tile)
+def _against_plain(kind, alleles, reads, quals, card, tile=None):
+    """K2 (``exact``, the default gap model), K3 (``general``, ONT-like
+    finite extensions) or K4 (``positional``, those with hop rates of 0.05
+    inside runs) at ``tile`` (default: the kernel's policy) against its
+    plain version on the card: the same finiteness and -1e30 items,
+    PAIRHMM_TOL."""
+    if kind == "positional":
+        dev_args = phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, card)
+    else:
+        args, _, _, _ = phc.pack_exact_batch(alleles, reads, quals,
+                                             GAP if kind == "exact" else GAP_ONT)
+        if kind == "general":
+            args = args[:5] + (phc.general_coef(GAP_ONT),)
+        dev_args = phc.to_device(args, card)
+    got = getattr(phc, f"{kind}_forward")(*dev_args, tile=tile)
     torch.cuda.synchronize()
-    ref = phc.general_forward_reference(*dev_args)
+    ref = getattr(phc, f"{kind}_forward_reference")(*dev_args)
     g, r = got.cpu().numpy(), ref.cpu().numpy()
-    assert g.shape == (n,)
+    assert g.shape == (len(alleles),)
     assert np.array_equal(np.isfinite(g), np.isfinite(r))
     assert np.array_equal(g == -1e30, r == -1e30)
     ok = r > -1e30
@@ -191,32 +200,58 @@ def _k3_against_plain(alleles, reads, quals, card, tile=None):
     assert np.all(err <= PAIRHMM_TOL), (tile, err.max())
 
 
+def _every_tile(kind, tile, card):
+    """One instantiated tile, forced through the C entry, on the widest tile
+    set it covers and on the mixed read lengths where it covers them."""
+    sets = pairhmm_tile_items()
+    widths = [X for X in PAIRHMM_TILE_WIDTHS if X <= tile[0] * tile[1]]
+    _against_plain(kind, *sets[f"width_{max(widths)}"], card, tile=tile)
+    if tile[0] * tile[1] >= 128:
+        _against_plain(kind, *sets["mixed_rlen_in_warp"], card, tile=tile)
+        _against_plain(kind, *sets["alen_not_multiple_of_rows"], card, tile=tile)
+
+
+def _entry_refuses(fn_name, dev_args):
+    for tile in ((8, 8), (5, 32)):  # covers 64 rows; no such instantiation
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            phc._launch(fn_name, *dev_args, tile=tile)
+
+
+@pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
+def test_k2_tile_sets_match_plain(card, name):
+    """K2's tiled layout on reads of 1, 4, 37 and 100 bases in one warp,
+    allele lengths off the rows per lane, and panel widths 32 to 1056."""
+    _against_plain("exact", *pairhmm_tile_items()[name], card)
+
+
+@pytest.mark.parametrize("tile", phc.GENERAL_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_k2_every_tile_matches_plain(card, tile):
+    _every_tile("exact", tile, card)
+
+
+def test_k2_entry_refuses_a_tile_that_does_not_take_the_panel(card):
+    alleles, reads, quals = pairhmm_tile_items()["width_128"]
+    args, *_ = phc.pack_exact_batch(alleles, reads, quals, GAP)
+    _entry_refuses("vlt_pairhmm_exact", phc.to_device(args, card))
+
+
 @pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
 def test_k3_tile_sets_match_plain(card, name):
     """K3's tiled layout on reads of 1, 4, 37 and 100 bases in one warp,
     allele lengths off the rows per lane, and panel widths 32 to 1056."""
-    _k3_against_plain(*pairhmm_tile_items()[name], card)
+    _against_plain("general", *pairhmm_tile_items()[name], card)
 
 
 @pytest.mark.parametrize("tile", phc.GENERAL_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
 def test_k3_every_tile_matches_plain(card, tile):
-    """Each instantiated tile, forced through the C entry, on the widest
-    tile set it covers and on the mixed read lengths where it covers them."""
-    sets = pairhmm_tile_items()
-    widths = [X for X in PAIRHMM_TILE_WIDTHS if X <= tile[0] * tile[1]]
-    _k3_against_plain(*sets[f"width_{max(widths)}"], card, tile=tile)
-    if tile[0] * tile[1] >= 128:
-        _k3_against_plain(*sets["mixed_rlen_in_warp"], card, tile=tile)
-        _k3_against_plain(*sets["alen_not_multiple_of_rows"], card, tile=tile)
+    _every_tile("general", tile, card)
 
 
 def test_k3_entry_refuses_a_tile_that_does_not_take_the_panel(card):
     alleles, reads, quals = pairhmm_tile_items()["width_128"]
     args, *_ = phc.pack_exact_batch(alleles, reads, quals, GAP_ONT)
-    dev_args = phc.to_device(args[:5] + (phc.general_coef(GAP_ONT),), card)
-    for tile in ((8, 8), (5, 32)):  # covers 64 rows; no such instantiation
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            phc._launch("vlt_pairhmm_general", *dev_args, tile=tile)
+    _entry_refuses("vlt_pairhmm_general",
+                   phc.to_device(args[:5] + (phc.general_coef(GAP_ONT),), card))
 
 
 def test_pairhmm_wrapper_checks_its_inputs(card):
@@ -230,6 +265,10 @@ def test_pairhmm_wrapper_checks_its_inputs(card):
         phc.exact_forward(a, r, q, al, rl, torch.zeros(7, device=card))
     with pytest.raises(ValueError):
         phc.exact_forward(a, r, q, al.cpu(), rl, coef)
+    with pytest.raises(ValueError, match="does not take"):
+        phc.exact_forward(a, r, q, al, rl, coef, tile=(5, 32))
+    with pytest.raises(ValueError, match="does not take"):
+        phc.exact_forward(a, r, q, al, rl, coef, tile=(8, 16))  # 128 rows of 192
     assert phc.exact_forward.launches == n0
 
 
@@ -258,49 +297,23 @@ def test_positional_kernel_matches_plain(card, name):
     assert np.all(np.abs(items[ok] - cpu[ok]) <= PAIRHMM_TOL * np.maximum(1, np.abs(cpu[ok])))
 
 
-def _k4_against_plain(alleles, reads, quals, card, tile=None):
-    """K4 at ``tile`` (default: positional_tile) against its plain version
-    on the card, ONT-like base rates and hop rates of 0.05 inside runs: the
-    same finiteness and -1e30 items, PAIRHMM_TOL."""
-    args = phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, card)
-    got = phc.positional_forward(*args, tile=tile)
-    torch.cuda.synchronize()
-    ref = phc.positional_forward_reference(*args)
-    g, r = got.cpu().numpy(), ref.cpu().numpy()
-    assert g.shape == (len(alleles),)
-    assert np.array_equal(np.isfinite(g), np.isfinite(r))
-    assert np.array_equal(g == -1e30, r == -1e30)
-    ok = r > -1e30
-    err = np.abs(g[ok] - r[ok]) / np.maximum(1.0, np.abs(r[ok]))
-    assert np.all(err <= PAIRHMM_TOL), (tile, err.max())
-
-
 @pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
 def test_k4_tile_sets_match_plain(card, name):
     """K4's tiled layout on the sets of K3's: reads of 1, 4, 37 and 100
     bases in one warp, allele lengths off the rows per lane, and panel
     widths 32 to 1056."""
-    _k4_against_plain(*pairhmm_tile_items()[name], card)
+    _against_plain("positional", *pairhmm_tile_items()[name], card)
 
 
 @pytest.mark.parametrize("tile", phc.GENERAL_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
 def test_k4_every_tile_matches_plain(card, tile):
-    """Each instantiated K4 tile, forced through the C entry, on the widest
-    tile set it covers and on the mixed read lengths where it covers them."""
-    sets = pairhmm_tile_items()
-    widths = [X for X in PAIRHMM_TILE_WIDTHS if X <= tile[0] * tile[1]]
-    _k4_against_plain(*sets[f"width_{max(widths)}"], card, tile=tile)
-    if tile[0] * tile[1] >= 128:
-        _k4_against_plain(*sets["mixed_rlen_in_warp"], card, tile=tile)
-        _k4_against_plain(*sets["alen_not_multiple_of_rows"], card, tile=tile)
+    _every_tile("positional", tile, card)
 
 
 def test_k4_entry_refuses_a_tile_that_does_not_take_the_panel(card):
     alleles, reads, quals = pairhmm_tile_items()["width_128"]
-    args = phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, card)
-    for tile in ((8, 8), (5, 32)):  # covers 64 rows; no such instantiation
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            phc._launch("vlt_pairhmm_positional", *args, tile=tile)
+    _entry_refuses("vlt_pairhmm_positional",
+                   phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, card))
 
 
 def test_positional_wrapper_checks_its_inputs(card):

@@ -166,7 +166,7 @@ def test_general_coef_matches_jax(monkeypatch):
 
 
 def _parent_rows(Xp):
-    """Allele rows the one-warp-per-item layout (K2's) computes: 32 lanes x
+    """Allele rows the kernels' earlier one-warp-per-item layout computed: 32 lanes x
     the smallest power of two >= Xp/32, at least 2."""
     r = 2
     while r < -(-Xp // 32):
@@ -178,58 +178,6 @@ def _parent_rows(Xp):
 # rows and the packed widths of the preprocess windows
 TILE_POLICY_WIDTHS = [1, 8, 31, 32, 33, 64, 65, 96, 100, 128, 129, 160, 192, 224, 256, 300,
                       384, 512, 513, 768, 1000, 1024]
-
-
-@pytest.mark.parametrize("Xp", TILE_POLICY_WIDTHS)
-def test_general_tile_fits_the_panel(Xp):
-    """K3's tile covers the panel, its lanes divide a warp, and it pads no
-    more rows than the one-warp-per-item layout did (at most one lane's
-    rows more than Xp where a tile of that size exists)."""
-    lanes, rows = phc.general_tile(Xp)
-    assert (lanes, rows) in phc.GENERAL_TILES
-    assert 32 % lanes == 0 and lanes >= 8
-    assert Xp <= lanes * rows <= _parent_rows(Xp)
-    # 16 lanes wherever a 16-lane tile pads no more
-    if any(t[0] == 16 and t[0] * t[1] == lanes * rows for t in phc.GENERAL_TILES):
-        assert lanes == 16
-
-
-def test_general_tile_every_width():
-    for Xp in range(1, 1025):
-        lanes, rows = phc.general_tile(Xp)
-        assert (lanes, rows) in phc.GENERAL_TILES and Xp <= lanes * rows <= _parent_rows(Xp)
-    # the packed widths (multiples of 32) of the preprocess windows: exact
-    for Xp in (32, 64, 96, 128, 160, 192, 256):
-        assert np.prod(phc.general_tile(Xp)) == Xp
-    assert phc.general_tile(128) == (16, 8)  # the main path's panel
-    assert phc.general_tile(1056) == phc.general_tile(32 * 32 * 32) == (32, 32)
-    # the limits the variant script's policies use
-    assert phc.general_tile(128, lanes=8) == (8, 16)
-    assert phc.general_tile(160, max_rows=8) == (32, 5)
-
-
-def test_general_tiles_are_the_kernel_instantiations():
-    """GENERAL_TILES lists exactly the (lanes, rows) pairs the CUDA source
-    instantiates (VLT_GENERAL_TILES), so a picked tile always launches."""
-    import re
-    from pathlib import Path
-
-    src = (Path(phc.__file__).parent.parent / "csrc" / "pairhmm_column.cu").read_text()
-    block = re.search(r"#define VLT_GENERAL_TILES\(X\)(.*?)\n\n", src, re.S).group(1)
-    pairs = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", block))
-    assert pairs == phc.GENERAL_TILES
-
-
-@pytest.mark.parametrize("tile", [(8, 4), (16, 6), (7, 32), (32, 32)])
-def test_general_forward_refuses_a_tile_that_does_not_take_the_panel(tile):
-    alleles, reads, quals = pairhmm_shape_items(3, 300, 50)  # Xp = 320
-    args, *_ = phc.pack_exact_batch(alleles, reads, quals, GAP_ONT)
-    args = phc.to_device(args[:5] + (phc.general_coef(GAP_ONT),), "cpu")
-    if tile == (32, 32):
-        assert np.isfinite(phc.general_forward(*args, tile=tile).numpy()).all()
-        return
-    with pytest.raises(ValueError, match="does not take"):
-        phc.general_forward(*args, tile=tile)
 
 
 @pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
@@ -540,53 +488,133 @@ def test_plain_k4_matches_jax_on_the_tile_sets(name):
     assert _rel(got, pallas) < TOL, _rel(got, pallas)
 
 
+# each kernel's tile policy, C entry, tiled kernel, and wrapper inputs
+TILED = {
+    "exact": (phc.exact_tile, "vlt_pairhmm_exact", "pairhmm_exact_tiled_kernel", "EXACT"),
+    "general": (phc.general_tile, "vlt_pairhmm_general", "pairhmm_general_tiled_kernel",
+                "GENERAL"),
+    "positional": (phc.positional_tile, "vlt_pairhmm_positional",
+                   "pairhmm_positional_tiled_kernel", "POSITIONAL"),
+}
+
+
+def _policy_checks(kind, Xp, tile):
+    """What each policy adds to covering the panel: K3 takes 16 lanes
+    wherever a 16-lane tile pads no more; K2 takes K3's tile; K4 pads as
+    K3 does and, of the tiles that pad as little, takes the fewest lanes."""
+    lanes, rows = tile
+    if kind == "general":
+        if any(t[0] == 16 and t[0] * t[1] == lanes * rows for t in phc.GENERAL_TILES):
+            assert lanes == 16
+    elif kind == "exact":
+        assert tile == phc.general_tile(Xp)
+    else:
+        assert lanes * rows == np.prod(phc.general_tile(Xp))
+        assert not any(t[0] < lanes and t[0] * t[1] == lanes * rows for t in phc.GENERAL_TILES)
+
+
 @pytest.mark.parametrize("Xp", TILE_POLICY_WIDTHS)
-def test_positional_tile_fits_the_panel(Xp):
-    """K4's tile covers the panel with K3's padding, its lanes divide a warp,
-    and of the tiles that pad as little it has the fewest lanes."""
-    lanes, rows = phc.positional_tile(Xp)
+@pytest.mark.parametrize("kind", sorted(TILED))
+def test_tile_fits_the_panel(kind, Xp):
+    """The kernel's tile covers the panel, its lanes divide a warp, and it
+    pads no more rows than the one-warp-per-item layout did (at most one
+    lane's rows more than Xp where a tile of that size exists)."""
+    lanes, rows = TILED[kind][0](Xp)
     assert (lanes, rows) in phc.GENERAL_TILES
     assert 32 % lanes == 0 and lanes >= 8
-    assert Xp <= lanes * rows == np.prod(phc.general_tile(Xp)) <= _parent_rows(Xp)
-    assert not any(t[0] < lanes and t[0] * t[1] == lanes * rows for t in phc.GENERAL_TILES)
+    assert Xp <= lanes * rows <= _parent_rows(Xp)
+    _policy_checks(kind, Xp, (lanes, rows))
 
 
-def test_positional_tile_every_width():
+@pytest.mark.parametrize("kind", sorted(TILED))
+def test_tile_every_width(kind):
+    policy = TILED[kind][0]
     for Xp in range(1, 1025):
-        tile = phc.positional_tile(Xp)
-        assert tile in phc.GENERAL_TILES and Xp <= np.prod(tile) == np.prod(phc.general_tile(Xp))
-        # K3's tile but at 65-128 rows, where K4 takes 8 lanes
-        assert tile == (phc.general_tile(Xp, lanes=8) if 64 < Xp <= 128 else phc.general_tile(Xp))
-    assert phc.positional_tile(128) == (8, 16)  # the main path's panel
-    assert phc.positional_tile(160) == (16, 10) and phc.positional_tile(256) == (16, 16)
-    assert phc.positional_tile(1056) == phc.positional_tile(32 * 32 * 32) == (32, 32)
+        tile = policy(Xp)
+        assert tile in phc.GENERAL_TILES and Xp <= np.prod(tile) <= _parent_rows(Xp)
+        _policy_checks(kind, Xp, tile)
+        if kind == "positional":  # K3's tile but at 65-128 rows, where K4 takes 8 lanes
+            assert tile == (phc.general_tile(Xp, lanes=8) if 64 < Xp <= 128
+                            else phc.general_tile(Xp))
+    # the packed widths (multiples of 32) of the preprocess windows: exact
+    for Xp in (32, 64, 96, 128, 160, 192, 256):
+        assert np.prod(policy(Xp)) == Xp
+    # the main path's 128-row panels, and the bench shapes' 160 and 256 rows
+    assert policy(128) == {"exact": (16, 8), "general": (16, 8), "positional": (8, 16)}[kind]
+    assert policy(160) == (16, 10) and policy(256) == (16, 16)
+    assert policy(1056) == policy(32 * 32 * 32) == (32, 32)
+    # the limits the variant script's policies use
+    assert phc.general_tile(128, lanes=8) == (8, 16)
+    assert phc.general_tile(160, max_rows=8) == (32, 5)
 
 
-def test_positional_tiles_are_the_kernel_instantiations():
-    """The CUDA source instantiates K4's tiled kernel for every tile of
-    VLT_GENERAL_TILES (the pairs GENERAL_TILES lists), so a tile that K4's
-    wrapper takes always launches."""
+@pytest.mark.parametrize("kind", sorted(TILED))
+def test_tiles_are_the_kernel_instantiations(kind):
+    """GENERAL_TILES lists exactly the (lanes, rows) pairs the CUDA source
+    instantiates (VLT_GENERAL_TILES), and the launcher instantiates the
+    kernel's tiled kernel at each of them and reaches it from the kernel's C
+    entry, so a tile that the wrapper takes always launches."""
     import re
     from pathlib import Path
 
+    _, entry, kernel, kind_enum = TILED[kind]
     src = (Path(phc.__file__).parent.parent / "csrc" / "pairhmm_column.cu").read_text()
+    block = re.search(r"#define VLT_GENERAL_TILES\(X\)(.*?)\n\n", src, re.S).group(1)
+    pairs = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", block))
+    assert pairs == phc.GENERAL_TILES
     launch = src[src.index("int launch_tiled("):]
     launch = launch[: launch.index("\n}\n")]
     tile_macro = re.search(r"#define VLT_TILE\(l, r\)(.*?)\n  VLT_GENERAL_TILES\(VLT_TILE\)",
                            launch, re.S)
-    assert tile_macro and "pairhmm_positional_tiled_kernel<l, r>" in tile_macro.group(1)
-    assert 'vlt_pairhmm_positional' in src and "launch_tiled<true>" in src
+    assert tile_macro and f"{kernel}<l, r>" in tile_macro.group(1)
+    body = src[src.index(f'extern "C" int {entry}('):]
+    assert f"launch_tiled<{kind_enum}>(" in body[: body.index("\n}\n")]
+
+
+def _tile_args(kind, alleles, reads, quals):
+    if kind == "positional":
+        return phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, "cpu")
+    args, *_ = phc.pack_exact_batch(alleles, reads, quals, GAP if kind == "exact" else GAP_ONT)
+    if kind == "general":
+        args = args[:5] + (phc.general_coef(GAP_ONT),)
+    return phc.to_device(args, "cpu")
 
 
 @pytest.mark.parametrize("tile", [(8, 4), (16, 6), (7, 32), (32, 32)])
-def test_positional_forward_refuses_a_tile_that_does_not_take_the_panel(tile):
+@pytest.mark.parametrize("kind", sorted(TILED))
+def test_forward_refuses_a_tile_that_does_not_take_the_panel(kind, tile):
+    """The wrapper checks the tile on the CPU too: one that does not cover
+    the panel, or that the source does not instantiate, raises."""
     alleles, reads, quals = pairhmm_shape_items(3, 300, 50)  # Xp = 320
-    args = phc.positional_args(alleles, reads, quals, GAP_ONT, HOP, "cpu")
+    args = _tile_args(kind, alleles, reads, quals)
+    fn = getattr(phc, f"{kind}_forward")
     if tile == (32, 32):
-        assert np.isfinite(phc.positional_forward(*args, tile=tile).numpy()).all()
+        assert np.isfinite(fn(*args, tile=tile).numpy()).all()
         return
     with pytest.raises(ValueError, match="does not take"):
-        phc.positional_forward(*args, tile=tile)
+        fn(*args, tile=tile)
+
+
+@pytest.mark.parametrize("name", sorted(pairhmm_tile_items()))
+def test_plain_k2_matches_jax_on_the_tile_sets(name):
+    """The sets that K2's tiled layout is checked on, on the card, against
+    its plain version: here the plain version against the JAX Pallas kernel
+    (interpret mode), the same finiteness.  Reads longer than their allele
+    (``width_*``: up to 7 insertions with no extension, e^-90 and below)
+    work at the underflow edge, where XLA flushes float32 denormals and
+    torch keeps them (ROADMAP C,
+    :func:`test_denormals_explain_the_difference_from_xla`), so the plain
+    K2 runs here with denormals flushed as XLA runs it."""
+    alleles, reads, quals = pairhmm_tile_items()[name]
+    torch.set_flush_denormal(True)
+    try:
+        got = phc.forward_items(alleles, reads, quals, GAP, "cpu", False)
+    finally:
+        torch.set_flush_denormal(False)
+    pallas = jpp.pallas_exact_forward(alleles, reads, quals, GAP, interpret=True)
+    assert np.array_equal(np.isfinite(got), np.isfinite(pallas))
+    assert np.array_equal(got <= -1e29, pallas <= -1e29)
+    assert _rel(got, pallas) < TOL, _rel(got, pallas)
 
 
 def test_denormals_explain_the_difference_from_xla():

@@ -113,9 +113,9 @@ def load():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.vlt_ll_classes.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
             lib.vlt_ll_classes.restype = i
-            lib.vlt_pairhmm_exact.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+            # K2, K3: B, Xp, Yp, then the tile (lanes, rows)
+            lib.vlt_pairhmm_exact.argtypes = [p] * 7 + [i] * 5 + [p]
             lib.vlt_pairhmm_exact.restype = i
-            # K3: B, Xp, Yp, then its tile (lanes, rows)
             lib.vlt_pairhmm_general.argtypes = [p] * 7 + [i] * 5 + [p]
             lib.vlt_pairhmm_general.restype = i
             # K4: the [7] coef gives way to the four gap panels io, ie, do, de;

@@ -268,7 +268,7 @@ PAIRHMM_TILE_WIDTHS = (32, 64, 96, 128, 160, 256, 1024, 1056)
 
 
 def pairhmm_tile_items(seed=0):
-    """Sets for K3's tiled layout (several items per warp), keyed by name,
+    """Sets for the tiled layout of K2-K4 (several items per warp), keyed by name,
     each (alleles, reads, quals): reads of 1, 4, 37 and 100 bases side by
     side; allele lengths that are no multiple of the rows per lane; and one
     set per panel width of ``PAIRHMM_TILE_WIDTHS`` (alleles of that length

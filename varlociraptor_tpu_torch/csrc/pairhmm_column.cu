@@ -35,41 +35,44 @@
 // so the card is filled by running many items at once; bytes are no limit
 // (the panels are read once, ~1 byte per cell row/column).
 //
-// Design of K2, and of K3 and K4 over 1024 rows: a work item is one warp
-// (or, for Xp > 1024, W = ceil(Xp/1024) warps of one block).  Each lane
-// keeps R consecutive allele positions of the
-// previous column(s) in registers; R, a power of two, is a template
-// parameter chosen from the panel width.  The i-1 and i-2 shifts are register moves plus one
-// __shfl_up_sync at the lane boundary (shared memory at a warp boundary).
-// The read base and miscall of a column are broadcast from the lane that
-// loaded them (32 columns per coalesced load).  The column maximum is a warp
-// reduction; the sums of the last column are taken once, at j = rlen.  The D
-// scan of K3 and K4 runs sequentially inside a lane and as a Kogge-Stone scan
-// of affine carries over lanes (and over warps, in order), which is exact up
+// Design up to Xp = 1024 (pairhmm_exact_tiled_kernel,
+// pairhmm_general_tiled_kernel, pairhmm_positional_tiled_kernel; one body,
+// tiled_forward, over a tile type: ExactTile for K2, GeneralTile with a POS
+// flag for K3 and K4): L = 8, 16 or 32 lanes per item and 32/L items per
+// warp, one warp per block, R rows per lane, the tile (L, R) chosen by the
+// caller (ops/pairhmm_column.py:exact_tile, general_tile, positional_tile)
+// so that L*R covers Xp with little padding and R is large: the per-column
+// cost (shuffles, the group maximum, K3's and K4's D scan carries, log2 L
+// steps each) is shared by more rows.  Every shuffle has width L, so the
+// items of a warp stay apart; the warp runs to its longest read and each
+// item keeps its sums at its own rlen.  What is the same for every column
+// (allele bytes, the rows' validity, the D scan's in-lane and carry
+// factors, K4's do / de and 1 - de) is set once per item, what is the same
+// for every row of a column (the emission's two candidates, K2's
+// c_ins*m_{j-1}, K4's io_j, ie_j, 1 - io_j, 1 - ie_j) once per column, and
+// the free-start terms have columns of their own (K2: columns 1 and 2; K3
+// and K4: column 1).  K2's cell is then w * e * (t_mm*M(i-1,j-1) +
+// c_del*M(i-2,j-1) + c_im*M(i-1,j-2)), its lane keeps M of two columns,
+// three shuffles per column bring the left lane's last two rows of column
+// j-1 and last row of column j-2, and the loop takes two columns per step,
+// so that the two column arrays trade places without register copies.  K4's cell adds two instructions to K3's:
+// t_mm = max((1 - io_j) - do_k, 1e-12).  The item's maximum is tested for
+// the rescale in every column.
+//
+// Over 1024 rows a work item is one block of W = ceil(Xp/1024) warps, 32
+// rows per lane (tile (32, 32)): the i-1 and i-2 shifts are register moves
+// plus one __shfl_up_sync at the lane boundary and shared memory at a warp
+// boundary; the read base and miscall of a column are broadcast from the
+// lane that loaded them (32 columns per coalesced load); the column maximum
+// and the last column's sums are reductions over the warps.  The D scan of
+// K3 and K4 runs sequentially inside a lane and as a Kogge-Stone scan of
+// affine carries over lanes (and over warps, in order), which is exact up
 // to float rounding, as the TPU kernel's log-shift scan is.  The carry
 // factors are products of the extension over the rows spanned (t_dd^n for
 // K3, products of de for K4); they do not change from column to column, so
 // each lane computes its factors once per item and each column scans only
-// the carried values.  K4 keeps its rows' do / de (and the next lane's
-// first) in registers and broadcasts io / ie with the read bases.  The
-// column loop stops at the item's own rlen, which gives what the TPU
-// kernel's frozen output gives.
-//
-// K3 and K4 up to Xp = 1024 have a layout of their own
-// (pairhmm_general_tiled_kernel, pairhmm_positional_tiled_kernel, one body
-// with a POS flag): L = 8, 16 or 32 lanes per item and 32/L items per warp,
-// R rows per lane, the tile (L, R) chosen by the caller
-// (ops/pairhmm_column.py:general_tile, positional_tile) so that L*R covers
-// Xp with little padding and R is large: the per-column cost (shuffles, the
-// group maximum, the D scan's carries, log2 L steps each) is shared by more
-// rows.  Every shuffle has width L, so the items of a warp stay apart; the
-// warp runs to its longest read and each item keeps its sums at its own
-// rlen.  What is the same for every column (allele bytes, the rows'
-// validity, the D scan's in-lane and carry factors, K4's do / de and 1 - de)
-// is set once per item, what is the same for every row of a column (K4's
-// io_j, ie_j, 1 - io_j, 1 - ie_j) once per column, so K4's cell adds two
-// instructions to K3's: t_mm = max((1 - io_j) - do_k, 1e-12).  Over 1024
-// rows both keep the multi-warp layout above.
+// the carried values.  The column loop stops at the item's own rlen, which
+// gives what the TPU kernel's frozen output gives.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,9 +86,8 @@ constexpr float EMPTY = -1e30f;
 constexpr float NEG_LN10_10 = -0.23025850929940458f;  // -ln(10)/10
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_WARPS = 32;        // warps of one item: Xp <= 32*32*32
-constexpr int ITEMS_PER_BLOCK = 4;   // when one warp holds an item
 
-// Shared scratch of the multi-warp items (Xp > 1024); unused otherwise.
+// Shared scratch of the multi-warp items (Xp > 1024).
 struct Scratch {
   float bnd[3][MAX_WARPS];   // lane 31's last values of each warp, previous column
   float mx[MAX_WARPS];       // per-warp column maxima
@@ -107,11 +109,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Maximum over the item's warps.
-template <bool MULTI>
 __device__ __forceinline__ float item_max(float v, Scratch& s, int w, int W,
                                           int lane) {
   v = warp_max(v);
-  if (!MULTI) return v;
   if (lane == 0) s.mx[w] = v;
   __syncthreads();
   float r = s.mx[0];
@@ -120,12 +120,10 @@ __device__ __forceinline__ float item_max(float v, Scratch& s, int w, int W,
 }
 
 // Sums of two values over the item's warps (warp partials added in order).
-template <bool MULTI>
 __device__ __forceinline__ void item_sum2(float& a, float& b, Scratch& s, int w,
                                           int W, int lane) {
   a = warp_sum(a);
   b = warp_sum(b);
-  if (!MULTI) return;
   if (lane == 0) {
     s.sum[0][w] = a;
     s.sum[1][w] = b;
@@ -142,19 +140,16 @@ __device__ __forceinline__ void item_sum2(float& a, float& b, Scratch& s, int w,
 // The value of the lane to the left (allele positions below p0): within the
 // warp by shuffle, across a warp boundary from the previous column's shared
 // copy, and `edge` for the item's first lane.
-template <bool MULTI>
 __device__ __forceinline__ float from_left(float mine, const float* bnd, int w,
                                            int lane, float edge) {
   float v = __shfl_up_sync(FULL, mine, 1);
-  if (lane == 0) v = (MULTI && w > 0) ? bnd[w - 1] : edge;
+  if (lane == 0) v = w > 0 ? bnd[w - 1] : edge;
   return v;
 }
 
 // Publish lane 31's last values for the next column's left neighbours.
-template <bool MULTI>
 __device__ __forceinline__ void publish(Scratch& s, int w, int lane, float b0,
                                         float b1, float b2) {
-  if (!MULTI) return;
   if (lane == 31) {
     s.bnd[0][w] = b0;
     s.bnd[1][w] = b1;
@@ -209,15 +204,14 @@ struct ItemIndex {
   int item, w, lane, p0;
 };
 
-// One warp per item and ITEMS_PER_BLOCK items per block, or (MULTI) one
-// block of W warps per item.  Lane `lane` of warp `w` holds allele rows
+// One block of W warps per item.  Lane `lane` of warp `w` holds allele rows
 // p0 .. p0+R-1 (row k is allele position k+1).
-template <int R, bool MULTI>
+template <int R>
 __device__ __forceinline__ ItemIndex item_index() {
   ItemIndex ix;
   ix.lane = threadIdx.x & 31;
-  ix.item = MULTI ? blockIdx.x : blockIdx.x * ITEMS_PER_BLOCK + (threadIdx.x >> 5);
-  ix.w = MULTI ? (threadIdx.x >> 5) : 0;
+  ix.item = blockIdx.x;
+  ix.w = threadIdx.x >> 5;
   ix.p0 = (ix.w * 32 + ix.lane) * R;
   return ix;
 }
@@ -233,11 +227,11 @@ __device__ __forceinline__ void load_allele(const uint8_t* row, int Xp, int p0,
 }
 
 // ---------------------------------------------------------------------------
-// K2: zero gap extension
+// K2 over 1024 rows: zero gap extension, W warps per item
 // ---------------------------------------------------------------------------
 
-template <int R, bool MULTI>
-__global__ void __launch_bounds__(MULTI ? 1024 : 32 * ITEMS_PER_BLOCK)
+template <int R>
+__global__ void __launch_bounds__(1024)
 pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
                      const uint8_t* __restrict__ read,
                      const uint8_t* __restrict__ qual,
@@ -246,9 +240,8 @@ pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
                      const float* __restrict__ coef, float* __restrict__ out,
                      int B, int Xp, int Yp, int W) {
   __shared__ Scratch s;
-  const ItemIndex ix = item_index<R, MULTI>();
-  if (ix.item >= B) return;  // a whole warp; the MULTI grid is exact
-  const long long item = ix.item;
+  const ItemIndex ix = item_index<R>();
+  const long long item = ix.item;  // the grid is exact
   const float t_mm = coef[0], c_del = coef[1], c_ins = coef[2], t_mi = coef[3];
   const int alen = alen_p[item];
   const int rlen = min(max(rlen_p[item], 1), Yp);
@@ -258,7 +251,7 @@ pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
   float p1[R], p2[R];  // M of column j-1, and of column j-2 (scaled)
 #pragma unroll
   for (int r = 0; r < R; ++r) p1[r] = p2[r] = 0.0f;
-  publish<MULTI>(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);
+  publish(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);
 
   ReadCursor<false> rc{read + item * Yp, qual + item * Yp, nullptr, nullptr, Yp};
   float scale = 0.0f, mprev = 0.0f, m1 = 0.0f;
@@ -267,9 +260,9 @@ pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
     float mj;
     rc.get(j, ix.lane, rj, mj);
     if (j == 1) m1 = mj;
-    const float up1 = from_left<MULTI>(p1[R - 1], s.bnd[0], ix.w, ix.lane, 0.0f);
-    const float up2 = from_left<MULTI>(p1[R - 2], s.bnd[1], ix.w, ix.lane, 0.0f);
-    const float uq1 = from_left<MULTI>(p2[R - 1], s.bnd[2], ix.w, ix.lane, 0.0f);
+    const float up1 = from_left(p1[R - 1], s.bnd[0], ix.w, ix.lane, 0.0f);
+    const float up2 = from_left(p1[R - 2], s.bnd[1], ix.w, ix.lane, 0.0f);
+    const float uq1 = from_left(p2[R - 1], s.bnd[2], ix.w, ix.lane, 0.0f);
     // free start: M at column 1, and the insertion at column 1 into column 2
     const float start = (j == 1) ? expf(-scale)
                         : (j == 2 ? c_ins * m1 * expf(-scale) : 0.0f);
@@ -289,7 +282,7 @@ pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
       p1[r] = col;
       cmax = fmaxf(cmax, col);
     }
-    cmax = item_max<MULTI>(cmax, s, ix.w, W, ix.lane);
+    cmax = item_max(cmax, s, ix.w, W, ix.lane);
     if (cmax > 0.0f && cmax < RESCALE_THRESH) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -306,7 +299,7 @@ pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
         m_sum += p1[r];
         p_sum += p2[r];
       }
-      item_sum2<MULTI>(m_sum, p_sum, s, ix.w, W, ix.lane);
+      item_sum2(m_sum, p_sum, s, ix.w, W, ix.lane);
       const float i_sum = (j == 1)
           ? mj * t_mi * ((float)alen + 1.0f) * expf(-scale)
           : mj * t_mi * p_sum;
@@ -315,7 +308,7 @@ pairhmm_exact_kernel(const uint8_t* __restrict__ allele,
         out[item] = (fin > 0.0f ? logf(fin) : EMPTY) - scale;
     }
     mprev = mj;
-    publish<MULTI>(s, ix.w, ix.lane, p1[R - 1], p1[R - 2], p2[R - 1]);
+    publish(s, ix.w, ix.lane, p1[R - 1], p1[R - 2], p2[R - 1]);
   }
 }
 
@@ -332,8 +325,8 @@ struct GapPanels {
   const float* dep;
 };
 
-template <int R, bool MULTI, bool POS>
-__global__ void __launch_bounds__(MULTI ? 1024 : 32 * ITEMS_PER_BLOCK)
+template <int R, bool POS>
+__global__ void __launch_bounds__(1024)
 pairhmm_general_kernel(const uint8_t* __restrict__ allele,
                        const uint8_t* __restrict__ read,
                        const uint8_t* __restrict__ qual,
@@ -342,8 +335,7 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
                        const float* __restrict__ coef, const GapPanels gp,
                        float* __restrict__ out, int B, int Xp, int Yp, int W) {
   __shared__ Scratch s;
-  const ItemIndex ix = item_index<R, MULTI>();
-  if (ix.item >= B) return;
+  const ItemIndex ix = item_index<R>();
   const long long item = ix.item;
   // K3's constants.  K4 sets t_im, t_mi, t_ii per column from io_j / ie_j,
   // and t_mm, t_dm and the scan's t_md, t_dd per row from do / de.
@@ -384,7 +376,7 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
       if (ix.lane >= (1 << k)) a *= v;
     }
     a_left = __shfl_up_sync(FULL, a, 1);
-    if (MULTI && ix.lane == 31) s.carry_a[ix.w] = a;
+    if (ix.lane == 31) s.carry_a[ix.w] = a;
   } else {
     const float a_lane = powf(t_dd, (float)R);
     float a = a_lane;
@@ -394,7 +386,7 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
       a *= a;
     }
     a_left = powf(a_lane, (float)ix.lane);
-    if (MULTI && ix.lane == 31) s.carry_a[ix.w] = powf(t_dd, (float)(32 * R));
+    if (ix.lane == 31) s.carry_a[ix.w] = powf(t_dd, (float)(32 * R));
   }
 
   uint8_t al[R];
@@ -402,7 +394,7 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
   float m[R], ip[R], d[R];  // M, I, D of the previous column
 #pragma unroll
   for (int r = 0; r < R; ++r) m[r] = ip[r] = d[r] = 0.0f;
-  publish<MULTI>(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);  // also publishes carry_a
+  publish(s, ix.w, ix.lane, 0.0f, 0.0f, 0.0f);  // also publishes carry_a
 
   ReadCursor<POS> rc{read + item * Yp, qual + item * Yp,
                      POS ? gp.io + item * Yp : nullptr,
@@ -419,9 +411,9 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
       t_mi = io_j;
       t_ii = ie_j;
     }
-    const float um = from_left<MULTI>(m[R - 1], s.bnd[0], ix.w, ix.lane, 0.0f);
-    const float ud = from_left<MULTI>(d[R - 1], s.bnd[1], ix.w, ix.lane, 0.0f);
-    const float ui = from_left<MULTI>(ip[R - 1], s.bnd[2], ix.w, ix.lane, i0);
+    const float um = from_left(m[R - 1], s.bnd[0], ix.w, ix.lane, 0.0f);
+    const float ud = from_left(d[R - 1], s.bnd[1], ix.w, ix.lane, 0.0f);
+    const float ui = from_left(ip[R - 1], s.bnd[2], ix.w, ix.lane, i0);
     const float startm = (j == 1) ? expf(-scale) : 0.0f;
     const float start_i = (j == 1) ? mj * t_mi : 0.0f;
     float cmax = 0.0f;
@@ -443,7 +435,7 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
       cmax = fmaxf(cmax, fmaxf(mc, ic));
     }
     float i0c = mj * t_ii * i0 + start_i;
-    cmax = item_max<MULTI>(cmax, s, ix.w, W, ix.lane);
+    cmax = item_max(cmax, s, ix.w, W, ix.lane);
     if (cmax > 0.0f && cmax < RESCALE_THRESH) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -469,11 +461,9 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
       if (ix.lane >= (1 << k)) incl += ks[k] * v;
     }
     float c_warp = 0.0f;  // E at the last row of the previous warp
-    if (MULTI) {
-      if (ix.lane == 31) s.carry[ix.w] = incl;
-      __syncthreads();
-      for (int k = 0; k < ix.w; ++k) c_warp = s.carry[k] + s.carry_a[k] * c_warp;
-    }
+    if (ix.lane == 31) s.carry[ix.w] = incl;
+    __syncthreads();
+    for (int k = 0; k < ix.w; ++k) c_warp = s.carry[k] + s.carry_a[k] * c_warp;
     const float left = __shfl_up_sync(FULL, incl, 1);
     const float c_in = ix.lane == 0 ? c_warp : left + a_left * c_warp;  // E(p0-1)
     float t_pow = 1.0f;  // the extension's product over rows p0+1 .. p0+r
@@ -491,13 +481,13 @@ pairhmm_general_kernel(const uint8_t* __restrict__ allele,
         m_sum += m[r];
         i_sum += ip[r];
       }
-      item_sum2<MULTI>(m_sum, i_sum, s, ix.w, W, ix.lane);
+      item_sum2(m_sum, i_sum, s, ix.w, W, ix.lane);
       const float fin = m_sum + i_sum + i0c;
       if (ix.w == 0 && ix.lane == 0)
         out[item] = (fin > 0.0f ? logf(fin) : EMPTY) - scale;
     }
     i0 = i0c;
-    publish<MULTI>(s, ix.w, ix.lane, m[R - 1], d[R - 1], ip[R - 1]);
+    publish(s, ix.w, ix.lane, m[R - 1], d[R - 1], ip[R - 1]);
   }
 }
 
@@ -727,13 +717,171 @@ struct GeneralTile {
     }
     i0 = i0c;
   }
+
+  // columns 1 .. jmax of the read, the warp's longest
+  __device__ __forceinline__ void columns(GroupCursor<L, POS>& rc, int rlen, int jmax) {
+    int rj;
+    float mj, oj = 0.0f, ej = 0.0f;
+    rc.get(1, g, rj, mj, oj, ej);
+    column<true>(1, rlen, rj, mj, oj, ej);
+    for (int j = 2; j <= jmax; ++j) {
+      rc.get(j, g, rj, mj, oj, ej);
+      column<false>(j, rlen, rj, mj, oj, ej);
+    }
+  }
+
+  // the item's final sum, on every lane of the group
+  __device__ __forceinline__ float finish() const {
+    const float m_sum = group_sum<L>(fin_m);
+    const float i_sum = group_sum<L>(fin_i);
+    return m_sum + i_sum + fin_i0;
+  }
 };
 
-// K3 (POS false) or K4 for Xp <= L*R <= 1024: L lanes per item, 32/L items
-// per warp, one warp per block.  The warp runs to its longest read; each
-// item's sums are taken at its own rlen and written after the loop.  A group
-// past B repeats the last item and writes nothing.
-template <int L, int R, bool POS>
+// One lane of a K2 item at L lanes x R rows: allele rows p0 .. p0+R-1 of
+// the columns j-1 and j-2, and the column step.  Set once per item: the
+// upper-cased allele bytes and the rows' validity as a weight (0 past
+// alen).  Per column, the emission's two candidates and c_ins*m_{j-1} are
+// taken once for all rows, and three width-L shuffles bring M(p0-1) and
+// M(p0-2) of column j-1 and M(p0-1) of column j-2; a cell is then
+// w * e * (t_mm*M(i-1,j-1) + c_del*M(i-2,j-1) + c_im*M(i-1,j-2)).  Columns
+// 1 and 2 are their own instantiations, so the free-start terms (e^-scale
+// at column 1, the insertion c_ins*m_1*e^-scale at column 2) leave the
+// loop.  The two columns kept trade places: column j overwrites column j-2
+// in pm[(j-1) & 1] (rows in descending order, so each row's old value has
+// been read by the row above), and columns() steps two columns at a time,
+// so no register is copied from one column to the next.
+template <int L, int R>
+struct ExactTile {
+  static_assert(R >= 2, "the i-2 shift needs two rows per lane");
+  float t_mm, c_del, c_ins, t_mi;
+  float w[R];    // 1 on the item's allele rows, 0 past alen
+  int al[R];     // allele bytes, upper case
+  int g, alen;
+  float pm[2][R];  // M of columns j-1 and j-2 (scaled); column j in pm[(j-1) & 1]
+  float scale = 0.0f, mprev = 0.0f, m1 = 0.0f;  // m1, mprev: miscall of columns 1, j-1
+  // at j = rlen: the lane's sums of M(j) and M(j-1), mj*t_mi, and the
+  // item's free-end insertion of a one-base read
+  float fin_m = 0.0f, fin_p = 0.0f, fin_c = 0.0f, fin_i0 = 0.0f, fin_scale = 0.0f;
+
+  // coef: K2's [4] constants; the gap rows are K4's and unused here
+  __device__ __forceinline__ void init(const float* coef, const float*, const float*,
+                                       const uint8_t* row, int Xp, int alen_, int lane) {
+    g = lane;
+    alen = alen_;
+    t_mm = coef[0], c_del = coef[1], c_ins = coef[2], t_mi = coef[3];
+    const int p0 = g * R;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = p0 + r;
+      al[r] = p < Xp ? (row[p] & 0xDF) : 0;
+      w[r] = p < alen ? 1.0f : 0.0f;
+      pm[0][r] = pm[1][r] = 0.0f;
+    }
+  }
+
+  // COL 1 or 2: that column, 0: any later one; CUR: the array column j
+  // goes to, (j-1) & 1
+  template <int COL, int CUR = COL == 2>
+  __device__ __forceinline__ void column(int j, int rlen, int rj, float mj) {
+    static_assert(COL == 0 || CUR == (COL == 2), "column 1 goes to pm[0], column 2 to pm[1]");
+    float(&p1)[R] = pm[1 - CUR];  // column j-1
+    float(&p2)[R] = pm[CUR];      // column j-2, then column j
+    const float em_match = 1.0f - mj;
+    const float em_mis = rj == 'N' ? 0.25f : mj * (1.0f / 3.0f);
+    float mx[R];
+    if constexpr (COL == 1) {
+      // nothing before column 1: M = e_m (free start, e^-0)
+      m1 = mj;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        p2[r] = w[r] * (al[r] == rj ? em_match : em_mis);
+        mx[r] = p2[r];
+      }
+    } else {
+      const float up1 = group_left<L>(p1[R - 1], g, 0.0f);
+      const float up2 = group_left<L>(p1[R - 2], g, 0.0f);
+      // column 2: M of column 0 is 0, and the free-start insertion at
+      // column 1 enters every row
+      float uq1 = 0.0f;
+      if constexpr (COL == 0) uq1 = group_left<L>(p2[R - 1], g, 0.0f);
+      const float start = COL == 2 ? c_ins * m1 * expf(-scale) : 0.0f;
+      const float c_im = c_ins * mprev;
+      // descending, so that rows r-1 and r-2 still hold columns j-1 and j-2
+#pragma unroll
+      for (int r = R - 1; r >= 0; --r) {
+        const float sh1 = r >= 1 ? p1[r >= 1 ? r - 1 : 0] : up1;
+        const float sh2 = r >= 2 ? p1[r >= 2 ? r - 2 : 0] : (r == 1 ? up1 : up2);
+        const float e = w[r] * (al[r] == rj ? em_match : em_mis);
+        const float b = t_mm * sh1 + c_del * sh2;
+        const float col = COL == 0 ? e * (b + c_im * (r >= 1 ? p2[r >= 1 ? r - 1 : 0] : uq1))
+                                   : e * (b + start);
+        p2[r] = col;
+        mx[r] = col;
+      }
+    }
+#pragma unroll
+    for (int s = 1; s < R; s *= 2)
+#pragma unroll
+      for (int r = 0; r + s < R; r += 2 * s) mx[r] = fmaxf(mx[r], mx[r + s]);
+    const float cmax = group_max<L>(mx[0]);
+    if (cmax > 0.0f && cmax < RESCALE_THRESH) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        p1[r] *= RESCALE;
+        p2[r] *= RESCALE;
+      }
+      scale += LOG_RESCALE;
+    }
+    if (j == rlen) {  // the item's last column; the group sums after the loop
+      fin_m = fin_p = 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        fin_m += p2[r];
+        fin_p += p1[r];
+      }
+      fin_c = mj * t_mi;
+      // free end: a one-base read's insertion after any of alen + 1 positions
+      fin_i0 = COL == 1 ? mj * t_mi * ((float)alen + 1.0f) * expf(-scale) : 0.0f;
+      fin_scale = scale;
+    }
+    mprev = mj;
+  }
+
+  // columns 1 .. jmax of the read, the warp's longest: 1 and 2, then two
+  // per step, their arrays trading places
+  __device__ __forceinline__ void columns(GroupCursor<L, false>& rc, int rlen, int jmax) {
+    int rj;
+    float mj, unused;
+    rc.get(1, g, rj, mj, unused, unused);
+    column<1>(1, rlen, rj, mj);
+    if (jmax >= 2) {
+      rc.get(2, g, rj, mj, unused, unused);
+      column<2>(2, rlen, rj, mj);
+    }
+    for (int j = 3; j <= jmax; j += 2) {
+      rc.get(j, g, rj, mj, unused, unused);
+      column<0, 0>(j, rlen, rj, mj);
+      if (j == jmax) break;
+      rc.get(j + 1, g, rj, mj, unused, unused);
+      column<0, 1>(j + 1, rlen, rj, mj);
+    }
+  }
+
+  // the item's final sum, on every lane of the group
+  __device__ __forceinline__ float finish() const {
+    const float m_sum = group_sum<L>(fin_m);
+    const float p_sum = group_sum<L>(fin_p);
+    return m_sum + fin_c * p_sum + fin_i0;
+  }
+};
+
+// K2, K3 or K4 (POS) for Xp <= L*R <= 1024, one lane of `Tile`
+// (ExactTile or GeneralTile, which steps the columns): L lanes per item,
+// 32/L items per warp, one warp per block.  The warp runs to its longest
+// read; each item's sums are taken at its own rlen and written after the
+// loop.  A group past B repeats the last item and writes nothing.
+template <int L, bool POS, class Tile>
 __device__ __forceinline__ void tiled_forward(const uint8_t* __restrict__ allele,
                                               const uint8_t* __restrict__ read,
                                               const uint8_t* __restrict__ qual,
@@ -746,7 +894,7 @@ __device__ __forceinline__ void tiled_forward(const uint8_t* __restrict__ allele
   const int g = threadIdx.x & (L - 1);
   const int slot = blockIdx.x * (32 / L) + threadIdx.x / L;
   const long long item = min(slot, B - 1);
-  GeneralTile<L, R, POS> t;
+  Tile t;
   t.init(coef, POS ? gp.dop + item * Xp : nullptr, POS ? gp.dep + item * Xp : nullptr,
          allele + item * Xp, Xp, alen_p[item], g);
   const int rlen = min(max(rlen_p[item], 1), Yp);
@@ -754,18 +902,22 @@ __device__ __forceinline__ void tiled_forward(const uint8_t* __restrict__ allele
   GroupCursor<L, POS> rc{read + item * Yp, qual + item * Yp,
                          POS ? gp.io + item * Yp : nullptr,
                          POS ? gp.ie + item * Yp : nullptr, Yp};
-  int rj;
-  float mj, oj = 0.0f, ej = 0.0f;
-  rc.get(1, g, rj, mj, oj, ej);
-  t.template column<true>(1, rlen, rj, mj, oj, ej);
-  for (int j = 2; j <= jmax; ++j) {
-    rc.get(j, g, rj, mj, oj, ej);
-    t.template column<false>(j, rlen, rj, mj, oj, ej);
-  }
-  const float m_sum = group_sum<L>(t.fin_m);
-  const float i_sum = group_sum<L>(t.fin_i);
-  const float fin = m_sum + i_sum + t.fin_i0;
+  t.columns(rc, rlen, jmax);
+  const float fin = t.finish();
   if (g == 0 && slot < B) out[item] = (fin > 0.0f ? logf(fin) : EMPTY) - t.fin_scale;
+}
+
+template <int L, int R>
+__global__ void __launch_bounds__(32)
+pairhmm_exact_tiled_kernel(const uint8_t* __restrict__ allele,
+                           const uint8_t* __restrict__ read,
+                           const uint8_t* __restrict__ qual,
+                           const int* __restrict__ alen_p,
+                           const int* __restrict__ rlen_p,
+                           const float* __restrict__ coef,
+                           float* __restrict__ out, int B, int Xp, int Yp) {
+  tiled_forward<L, false, ExactTile<L, R>>(allele, read, qual, alen_p, rlen_p, coef,
+                                           GapPanels{}, out, B, Xp, Yp);
 }
 
 template <int L, int R>
@@ -777,8 +929,8 @@ pairhmm_general_tiled_kernel(const uint8_t* __restrict__ allele,
                              const int* __restrict__ rlen_p,
                              const float* __restrict__ coef,
                              float* __restrict__ out, int B, int Xp, int Yp) {
-  tiled_forward<L, R, false>(allele, read, qual, alen_p, rlen_p, coef, GapPanels{}, out,
-                             B, Xp, Yp);
+  tiled_forward<L, false, GeneralTile<L, R, false>>(allele, read, qual, alen_p, rlen_p,
+                                                    coef, GapPanels{}, out, B, Xp, Yp);
 }
 
 template <int L, int R>
@@ -789,72 +941,25 @@ pairhmm_positional_tiled_kernel(const uint8_t* __restrict__ allele,
                                 const int* __restrict__ alen_p,
                                 const int* __restrict__ rlen_p, const GapPanels gp,
                                 float* __restrict__ out, int B, int Xp, int Yp) {
-  tiled_forward<L, R, true>(allele, read, qual, alen_p, rlen_p, nullptr, gp, out, B, Xp,
-                            Yp);
+  tiled_forward<L, true, GeneralTile<L, R, true>>(allele, read, qual, alen_p, rlen_p,
+                                                  nullptr, gp, out, B, Xp, Yp);
 }
 
-// The tiles (lanes per item, rows per lane) of K3's and K4's kernels above;
-// ops/pairhmm_column.py:GENERAL_TILES lists the same pairs.
+// The tiles (lanes per item, rows per lane) of the K2, K3 and K4 kernels
+// above; ops/pairhmm_column.py:GENERAL_TILES lists the same pairs.
 #define VLT_GENERAL_TILES(X)                                                 \
   X(8, 4) X(8, 8) X(8, 12) X(8, 16) X(16, 6) X(16, 8) X(16, 10) X(16, 12)    \
   X(16, 16) X(32, 5) X(32, 6) X(32, 8) X(32, 12) X(32, 16) X(32, 24) X(32, 32)
 
 enum Kind { EXACT, GENERAL, POSITIONAL };
 
-template <Kind K, int R, bool MULTI>
-void launch_r(dim3 grid, dim3 block, cudaStream_t st, const uint8_t* allele,
-              const uint8_t* read, const uint8_t* qual, const int* alen,
-              const int* rlen, const float* coef, const GapPanels& gp,
-              float* out, int B, int Xp, int Yp, int W) {
-  if constexpr (K == EXACT)
-    pairhmm_exact_kernel<R, MULTI><<<grid, block, 0, st>>>(
-        allele, read, qual, alen, rlen, coef, out, B, Xp, Yp, W);
-  else
-    pairhmm_general_kernel<R, MULTI, K == POSITIONAL><<<grid, block, 0, st>>>(
-        allele, read, qual, alen, rlen, coef, gp, out, B, Xp, Yp, W);
-}
-
-// K2: one warp per item, R rows per lane (the smallest power of two >=
-// Xp/32, at least 2 for the i-2 shift); W warps of 32 rows per lane, one
-// block per item, over 1024 rows.
-int launch_exact(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
-                 const int* alen, const int* rlen, const float* coef, float* out,
-                 int B, int Xp, int Yp, void* stream) {
-  if (B <= 0) return (int)cudaSuccess;
-  if (Xp <= 0 || Yp <= 0 || Xp > MAX_WARPS * 32 * 32)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (Xp > 32 * 32) {
-    const int W = (Xp + 32 * 32 - 1) / (32 * 32);
-    launch_r<EXACT, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual, alen, rlen,
-                              coef, GapPanels{}, out, B, Xp, Yp, W);
-    return (int)cudaGetLastError();
-  }
-  const dim3 grid((B + ITEMS_PER_BLOCK - 1) / ITEMS_PER_BLOCK);
-  const dim3 block(32 * ITEMS_PER_BLOCK);
-  int r = 2;
-  while (r < (Xp + 31) / 32) r *= 2;
-#define VLT_CASE(rows)                                                       \
-  case rows:                                                                 \
-    launch_r<EXACT, rows, false>(grid, block, st, allele, read, qual, alen,  \
-                                 rlen, coef, GapPanels{}, out, B, Xp, Yp, 1); \
-    break;
-  switch (r) {
-    VLT_CASE(2) VLT_CASE(4) VLT_CASE(8) VLT_CASE(16) VLT_CASE(32)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VLT_CASE
-  return (int)cudaGetLastError();
-}
-
-// K3 (POS false) and K4: the tile (lanes, rows) is the caller's; Xp > 1024
-// takes the multi-warp kernel above, as tile (32, 32).
-template <bool POS>
+// K2, K3 and K4: the tile (lanes, rows) is the caller's; Xp > 1024 takes the
+// multi-warp kernels above, W warps of 32 rows per lane, as tile (32, 32).
+template <Kind K>
 int launch_tiled(const uint8_t* allele, const uint8_t* read, const uint8_t* qual,
                  const int* alen, const int* rlen, const float* coef,
                  const GapPanels& gp, float* out, int B, int Xp, int Yp, int lanes,
                  int rows, void* stream) {
-  constexpr Kind K = POS ? POSITIONAL : GENERAL;
   if (B <= 0) return (int)cudaSuccess;
   if (Xp <= 0 || Yp <= 0 || Xp > MAX_WARPS * 32 * 32)
     return (int)cudaErrorInvalidValue;
@@ -862,15 +967,22 @@ int launch_tiled(const uint8_t* allele, const uint8_t* read, const uint8_t* qual
   if (Xp > 32 * 32) {
     if (lanes != 32 || rows != 32) return (int)cudaErrorInvalidValue;
     const int W = (Xp + 32 * 32 - 1) / (32 * 32);
-    launch_r<K, 32, true>(dim3(B), dim3(32 * W), st, allele, read, qual, alen, rlen, coef,
-                          gp, out, B, Xp, Yp, W);
+    if constexpr (K == EXACT)
+      pairhmm_exact_kernel<32><<<B, 32 * W, 0, st>>>(allele, read, qual, alen, rlen, coef,
+                                                      out, B, Xp, Yp, W);
+    else
+      pairhmm_general_kernel<32, K == POSITIONAL><<<B, 32 * W, 0, st>>>(
+          allele, read, qual, alen, rlen, coef, gp, out, B, Xp, Yp, W);
     return (int)cudaGetLastError();
   }
   if (lanes * rows < Xp) return (int)cudaErrorInvalidValue;
   const dim3 grid((B + 32 / lanes - 1) / (32 / lanes));
 #define VLT_TILE(l, r)                                                      \
   if (lanes == l && rows == r) {                                            \
-    if constexpr (POS)                                                      \
+    if constexpr (K == EXACT)                                               \
+      pairhmm_exact_tiled_kernel<l, r><<<grid, 32, 0, st>>>(                \
+          allele, read, qual, alen, rlen, coef, out, B, Xp, Yp);            \
+    else if constexpr (K == POSITIONAL)                                     \
       pairhmm_positional_tiled_kernel<l, r><<<grid, 32, 0, st>>>(           \
           allele, read, qual, alen, rlen, gp, out, B, Xp, Yp);              \
     else                                                                    \
@@ -890,14 +1002,16 @@ int launch_tiled(const uint8_t* allele, const uint8_t* read, const uint8_t* qual
 // and qual [B, Yp] uint8 row-major; alen, rlen [B] int32; coef [4] (K2:
 // t_mm, t_dm*t_md, t_im*t_mi, t_mi) or [7] (K3: t_mm, t_dm, t_im, t_mi, t_md,
 // t_ii, t_dd) float32; K4: io, ie [B, Yp] and do, de [B, Xp] float32
-// LINEAR; out [B] float32.  K3 and K4 also take their tile: lanes per item
-// and allele rows per lane, one of VLT_GENERAL_TILES with lanes*rows >= Xp,
-// or (32, 32) for Xp > 1024.
+// LINEAR; out [B] float32.  Each takes its tile: lanes per item and allele
+// rows per lane, one of VLT_GENERAL_TILES with lanes*rows >= Xp, or (32, 32)
+// for Xp > 1024.
 extern "C" int vlt_pairhmm_exact(const uint8_t* allele, const uint8_t* read,
                                  const uint8_t* qual, const int* alen,
                                  const int* rlen, const float* coef, float* out,
-                                 int B, int Xp, int Yp, void* stream) {
-  return launch_exact(allele, read, qual, alen, rlen, coef, out, B, Xp, Yp, stream);
+                                 int B, int Xp, int Yp, int lanes, int rows,
+                                 void* stream) {
+  return launch_tiled<EXACT>(allele, read, qual, alen, rlen, coef, GapPanels{}, out, B, Xp,
+                             Yp, lanes, rows, stream);
 }
 
 extern "C" int vlt_pairhmm_general(const uint8_t* allele, const uint8_t* read,
@@ -905,8 +1019,8 @@ extern "C" int vlt_pairhmm_general(const uint8_t* allele, const uint8_t* read,
                                    const int* rlen, const float* coef,
                                    float* out, int B, int Xp, int Yp,
                                    int lanes, int rows, void* stream) {
-  return launch_tiled<false>(allele, read, qual, alen, rlen, coef, GapPanels{}, out, B,
-                             Xp, Yp, lanes, rows, stream);
+  return launch_tiled<GENERAL>(allele, read, qual, alen, rlen, coef, GapPanels{}, out, B,
+                               Xp, Yp, lanes, rows, stream);
 }
 
 extern "C" int vlt_pairhmm_positional(const uint8_t* allele,
@@ -916,7 +1030,7 @@ extern "C" int vlt_pairhmm_positional(const uint8_t* allele,
                                       const float* dop, const float* dep,
                                       float* out, int B, int Xp, int Yp,
                                       int lanes, int rows, void* stream) {
-  return launch_tiled<true>(allele, read, qual, alen, rlen, nullptr,
-                            GapPanels{io, ie, dop, dep}, out, B, Xp, Yp, lanes, rows,
-                            stream);
+  return launch_tiled<POSITIONAL>(allele, read, qual, alen, rlen, nullptr,
+                                  GapPanels{io, ie, dop, dep}, out, B, Xp, Yp, lanes, rows,
+                                  stream);
 }

@@ -11,6 +11,9 @@ terms per cell:
     M(i,j) = e_m(i,j) * [ t_mm * M(i-1,j-1) + t_dm*t_md * M(i-2,j-1)
                           + t_im*t_mi*m_{j-1} * M(i-1,j-2) ]
 
+On the card it runs at a tile (lanes per item, allele rows per lane) that
+:func:`exact_tile` picks from the panel width, on the layout of K3 and K4.
+
 K3 (``general_forward``): constant finite extensions, three states M/I/D.
 Within a column D(i) = t_md*M(i-1) + t_dd*D(i-1) is a first-order linear
 recurrence over i (a prefix scan).  On the card it runs at a tile (lanes
@@ -25,7 +28,8 @@ t_mm = max(1 - io_j - do_k, 1e-12), t_dm = 1 - de_k (unclamped, times
 D(k-1) of the previous column), t_im = 1 - ie_j, t_mi = io_j, t_ii = ie_j,
 and D(k) = do_k*M(k-1) + de_k*D(k-1).  :func:`positional_gaps` builds the
 four LINEAR panels on the device from the packed bytes.  On the card it
-runs on K3's tiled layout, at the tile :func:`positional_tile` picks.
+runs on the tiled layout of K2 and K3, at the tile :func:`positional_tile`
+picks.
 
 All three work in linear-space float32.  A work item whose column maximum falls
 below 1e-16 is multiplied by 1e16 (its log scale is kept aside), start and
@@ -54,9 +58,10 @@ EMPTY = -1e30  # result of an empty read (and of a read with no alignment)
 # largest allele panel the kernels take: 32 warps x 32 lanes x 32 positions
 MAX_XP = 32 * 32 * 32
 _LN10_10 = math.log(10.0) / 10.0
-# K3's and K4's tiles up to Xp = 1024, (lanes per item, allele rows per
-# lane), as csrc/pairhmm_column.cu:VLT_GENERAL_TILES instantiates them for
-# both kernels; wider panels take the multi-warp kernel, tile (32, 32)
+# the tiles of K2, K3 and K4 up to Xp = 1024, (lanes per item, allele rows
+# per lane), as csrc/pairhmm_column.cu:VLT_GENERAL_TILES instantiates them
+# for the three kernels; wider panels take the multi-warp kernels, tile
+# (32, 32)
 GENERAL_TILES = ((8, 4), (8, 8), (8, 12), (8, 16), (16, 6), (16, 8), (16, 10), (16, 12),
                  (16, 16), (32, 5), (32, 6), (32, 8), (32, 12), (32, 16), (32, 24), (32, 32))
 # called around every kernel launch when set (see _launch)
@@ -94,6 +99,20 @@ def positional_tile(Xp):
         return (32, 32)
     return min((t for t in GENERAL_TILES if t[0] * t[1] >= Xp),
                key=lambda t: (t[0] * t[1], t[0]))
+
+
+def exact_tile(Xp):
+    """K2's tile (lanes, rows) for an allele panel of Xp rows: K3's policy,
+    :func:`general_tile` (16 lanes where they pad no more; (32, 32) over
+    1024 rows).  K2 keeps ~4 registers per row against K3's ~7, so at 128
+    rows (16, 8) takes 64 and (8, 16) 95 registers, and one wave holds the
+    main path's ~4,400-item launches either way.  On an H100 at 700 W
+    (PERF.md §6) (8, 16) took 1.6% less time at 4394 x 128 x 100 and 3.7% more on
+    the main path's own launches; (32, 5) took 37% more (25% padded rows,
+    5-step group maximum, 33 one-warp blocks per SM where an SM holds 32);
+    at 160 and 256 rows 32 lanes took 27% and 22% more than (16, 10) and
+    (16, 16)."""
+    return general_tile(Xp)
 
 
 # ---------------------------------------------------------------------------
@@ -454,23 +473,6 @@ def _launch(fn_name, allele, read, *tensors, tile=()):
     return out
 
 
-def exact_forward(allele, read, qual, alen, rlen, coef):
-    """K2: [B] f32 log forward probabilities, zero-extension model.  CPU
-    tensors: the plain version.  CUDA tensors: the kernel (counted in
-    ``exact_forward.launches``)."""
-    _check("exact_forward", allele, read, qual, alen, rlen, coef, 4)
-    if allele.device.type == "cpu":
-        return exact_forward_reference(allele, read, qual, alen, rlen, coef)
-    if allele.device.type != "cuda":
-        raise ValueError(f"exact_forward: unsupported device {allele.device}")
-    out = _launch("vlt_pairhmm_exact", allele, read, qual, alen, rlen, coef)
-    exact_forward.launches += 1
-    return out
-
-
-exact_forward.launches = 0
-
-
 def _tile_for(name, Xp, tile, policy):
     """``tile`` (default ``policy(Xp)``) as a tuple, if it takes a panel of
     Xp rows: one of GENERAL_TILES covering Xp, or (32, 32) over 1024 rows."""
@@ -479,6 +481,25 @@ def _tile_for(name, Xp, tile, policy):
     if tile not in GENERAL_TILES or not fits:
         raise ValueError(f"{name}: tile {tile} does not take Xp = {Xp}")
     return tile
+
+
+def exact_forward(allele, read, qual, alen, rlen, coef, tile=None):
+    """K2: [B] f32 log forward probabilities, zero-extension model.  CPU
+    tensors: the plain version.  CUDA tensors: the kernel at ``tile``
+    (lanes, rows), by default :func:`exact_tile` of the panel width
+    (counted in ``exact_forward.launches``)."""
+    _check("exact_forward", allele, read, qual, alen, rlen, coef, 4)
+    tile = _tile_for("exact_forward", allele.shape[1], tile, exact_tile)
+    if allele.device.type == "cpu":
+        return exact_forward_reference(allele, read, qual, alen, rlen, coef)
+    if allele.device.type != "cuda":
+        raise ValueError(f"exact_forward: unsupported device {allele.device}")
+    out = _launch("vlt_pairhmm_exact", allele, read, qual, alen, rlen, coef, tile=tile)
+    exact_forward.launches += 1
+    return out
+
+
+exact_forward.launches = 0
 
 
 def general_forward(allele, read, qual, alen, rlen, coef, tile=None):

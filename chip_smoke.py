@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
-with nvcc (sm_90a, one process per source), then runs seven phases, each
+with nvcc (sm_90a, one process per source), then runs eight phases, each
 printing one JSON line.  It refuses every import of ``jax``, ``jaxlib`` and
 the JAX package ``varlociraptor_tpu``:
 
@@ -70,9 +70,27 @@ the JAX package ``varlociraptor_tpu``:
                        build/chip_smoke/homopolymer/k4_main_launches.pt), the
                        192-locus ``--device cpu`` re-preprocess (compared),
                        call and FDR.
+  (f) engine_modes     the engine's remaining modes at resolution 0.01, depth
+                       64: (f1) tumor-normal with ``--full-prior`` (the
+                       two-sample joint prior, 8192 loci), (f2) the l2fc
+                       scenario ``bench_utils.L2FC_SCENARIO`` (tumor and
+                       relapse contaminated by normal, l2fc(relapse, tumor)
+                       events: the star-component loop, 8192 loci), (f3) a
+                       three-sample contamination cycle (2048 loci); each
+                       timed with CUDA events after a warm-up (every output
+                       copied to the host), with its peak memory, K1's
+                       launches and shapes per call and the grid-axis loop
+                       steps per call, and its first 1024 loci re-run with
+                       the plain K1 and compared; then ``call variants
+                       generic --full-prior --device cuda`` on 20,000
+                       synthetic tumor/normal loci (K1 launches per window),
+                       its first 2,000 loci re-called with ``--device cpu``
+                       and compared; and the host seconds of the
+                       --full-prior prior tables (tumor-normal, and the
+                       mendelian trio at 0.01: 101^3 cells).
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
-launches counted in phase (c), K2 and K3 with those counted in phase (d)'s
+launches counted in phases (c) and (f) (``launches_by_phase``), K2 and K3 with those counted in phase (d)'s
 preprocess steps, K4 with those of phase (e)'s; each with its time, its
 plain version's, and its bound (operations over the float32 peak or bytes
 over the memory rate, whichever is larger, on that kernel's timed inputs;
@@ -925,6 +943,196 @@ def phase_homopolymer(work, genome_len=2_000_000, n_germline=1000, n_somatic=500
     return res, launches
 
 
+# phase (f): loci per engine call of each mode, the plain recheck's head, and
+# the CLI's loci and CPU re-call
+MODE_LOCI = {"full_prior": 8192, "l2fc": 8192, "cyclic": 2048}
+MODES_PLAIN = 1024
+MODES_CLI_LOCI = 20_000
+MODES_CLI_CPU = 2000
+
+
+@contextlib.contextmanager
+def k1_shapes():
+    """K1's launches by shape (rows N, classes U, reads D), from the
+    wrapper's launch hook."""
+    from collections import Counter
+
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+
+    shapes = Counter()
+
+    def hook(N, U, D):
+        shapes[(N, U, D)] += 1
+
+    k1.launch_hook = hook
+    try:
+        yield shapes
+    finally:
+        k1.launch_hook = None
+
+
+def mode_run(name, engine, n_loci, table):
+    """(f1)-(f3): one engine mode on ``n_loci`` loci at depth 64, timed with
+    CUDA events after a warm-up (every output copied to the host), its K1
+    launches and loop steps per call over three calls, peak memory, and the
+    first MODES_PLAIN loci re-run with the plain K1 and compared."""
+    import numpy as np
+    import torch
+
+    from varlociraptor_tpu_torch.bench_utils import engine_inputs
+    from varlociraptor_tpu_torch.compare import compare_outputs
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+
+    inputs = engine_inputs(engine, n_loci=n_loci, depth=64, seed=0)
+    pj = None
+    if table is not None:
+        pj = np.ascontiguousarray(np.broadcast_to(table, (n_loci,) + table.shape))
+    engine.run(*inputs, ln_prior_joint=pj)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.ll_classes.launches = 0  # main path starts here
+    engine.loop_steps = 0
+    ms, wall, runs = [], [], 3
+    with k1_shapes() as shapes:
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = engine.run(*inputs, ln_prior_joint=pj)  # outputs on the host
+            end.record()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            ms.append(start.elapsed_time(end))
+    launches = k1.ll_classes.launches
+    steps = engine.loop_steps
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0 or launches != sum(shapes.values()) or launches % runs:
+        raise PhaseError(f"engine_modes {name}: K1 launched {launches} times in {runs} calls")
+    if out["posteriors"].shape != (n_loci, engine.n_events) or out["af"].shape != (
+            n_loci, engine.n_samples):
+        raise PhaseError(f"engine_modes {name}: output shapes")
+    if not (np.isfinite(out["marginal"]).all() and np.isfinite(out["af"]).all()):
+        raise PhaseError(f"engine_modes {name}: non-finite marginal or af")
+    if any(np.isnan(np.asarray(v, dtype=np.float64)).any() for v in out.values()):
+        raise PhaseError(f"engine_modes {name}: NaN in the outputs")
+    sub = [np.asarray(x)[:MODES_PLAIN] for x in inputs]
+    t0 = time.perf_counter()
+    with plain_k1():
+        plain = engine.run(*sub, ln_prior_joint=None if pj is None else pj[:MODES_PLAIN])
+    plain_s = time.perf_counter() - t0
+    head = {k: v[:MODES_PLAIN] for k, v in out.items()}
+    problems, info = compare_outputs(plain, head, grid_values=engine.grid.values)
+    if problems:
+        raise PhaseError(f"engine_modes {name} vs plain K1: " + "; ".join(problems[:5]))
+    best = min(ms)
+    return {
+        "mode": name, "n_loci": n_loci, "samples": engine.n_samples,
+        "branches": engine.n_branches,
+        "lfc_branches": len(engine.branch_lfc_masks),
+        "ms": ms, "wall_s": wall, "loci_per_s": n_loci / (best / 1e3),
+        "peak_mem_gb": peak / 2**30,
+        "k1_launches_per_call": launches // runs,
+        "k1_shapes": [{"N": N, "U": U, "D": D, "per_call": c // runs}
+                      for (N, U, D), c in sorted(shapes.items())],
+        "loop_steps_per_call": steps // runs,
+        "vs_plain_head": {"n_loci": min(MODES_PLAIN, n_loci), "seconds": plain_s,
+                          "max_rel": info["max_rel"], "af_max": info["af_max"],
+                          "af_flat": len(info["af_flat"]),
+                          "topk_swaps": len(info["topk_swaps"])},
+    }, launches
+
+
+def prior_table_seconds():
+    """Host seconds of the --full-prior table of the mendelian trio with
+    every sample at resolution 0.01 (101^3 cells, prior.compute once per
+    cell)."""
+    import copy
+
+    import numpy as np
+
+    from varlociraptor_tpu_torch.bench_utils import TRIO_SCENARIO, full_prior_table, scenario_engine
+
+    doc = copy.deepcopy(TRIO_SCENARIO)
+    for sample in doc["samples"].values():
+        sample["resolution"] = 0.01
+    scenario, trio = scenario_engine(doc, 0.01, device="cuda")
+    table, secs = full_prior_table(scenario, trio)
+    if not np.isfinite(table).any():
+        raise PhaseError("engine_modes: the trio prior table has no finite cell")
+    return {"cells": int(table.size), "shape": list(table.shape), "host_s": secs,
+            "us_per_cell": secs / table.size * 1e6}
+
+
+def phase_engine_modes(work):
+    """(f): the engine's l2fc, cyclic-contamination and --full-prior modes,
+    then ``call variants generic --full-prior`` through the CLI."""
+    import numpy as np
+
+    from varlociraptor_tpu_torch import bench_utils as bu
+    from varlociraptor_tpu_torch import cli
+    from varlociraptor_tpu_torch.compare import compare_vcf_text, vcf_record_keys
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+
+    res = {"phase": "engine_modes", "depth": 64, "resolution": 0.01, "modes": []}
+    launches = 0
+    scenario, tn = bu.tumor_normal_engine(resolution=0.01, purity=0.75, device="cuda")
+    table, table_s = bu.full_prior_table(scenario, tn)
+    res["prior_table_tumor_normal"] = {"cells": int(table.size), "shape": list(table.shape),
+                                       "host_s": table_s}
+    for name, build, tbl in (
+        ("full_prior", lambda: tn, table),
+        ("l2fc", lambda: bu.l2fc_engine(device="cuda"), None),
+        ("cyclic", lambda: bu.cyclic_engine(device="cuda"), None),
+    ):
+        rec, n = mode_run(name, build(), MODE_LOCI[name], tbl)
+        res["modes"].append(rec)
+        launches += n
+
+    # the CLI: tumor-normal with --full-prior, then its head on the CPU
+    tumor, normal, _ = bu.synth_observation_files(work / "fp_obs", n_loci=MODES_CLI_LOCI, seed=1)
+    yaml_path = work / "tumor_normal.yaml"
+    yaml_path.write_text(json.dumps(scenario.doc))  # JSON is YAML
+    calls = work / "fp_calls.vcf"
+    argv = ["call", "variants", "generic", "--scenario", str(yaml_path), "--obs",
+            f"tumor={tumor}", f"normal={normal}", "--full-prior"]
+    k1.ll_classes.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    rc = cli.run(argv + ["--device", "cuda", "--output", str(calls)])
+    call_s = time.perf_counter() - t0
+    cli_launches = k1.ll_classes.launches
+    calls_text = calls.read_text()
+    n_called = len(vcf_record_keys(calls_text))
+    if rc != 0 or n_called != MODES_CLI_LOCI or cli_launches == 0:
+        raise PhaseError(f"engine_modes cli: rc {rc}, {n_called} records, "
+                         f"{cli_launches} K1 launches")
+    launches += cli_launches
+    sub_dir = work / "fp_obs2k"
+    sub_dir.mkdir(parents=True, exist_ok=True)
+    t2k, n2k = subset_files([tumor, normal], sub_dir, MODES_CLI_CPU)
+    calls_cpu = work / "fp_calls_cpu.vcf"
+    t0 = time.perf_counter()
+    rc = cli.run(["call", "variants", "generic", "--scenario", str(yaml_path), "--obs",
+                  f"tumor={t2k}", f"normal={n2k}", "--full-prior", "--device", "cpu",
+                  "--output", str(calls_cpu)])
+    cpu_s = time.perf_counter() - t0
+    lines = calls_text.splitlines(keepends=True)
+    n_head = sum(1 for ln in lines if ln.startswith("#"))
+    problems, swapped = compare_vcf_text(calls_cpu.read_text(), "".join(lines[: n_head + MODES_CLI_CPU]))
+    if rc != 0 or problems:
+        raise PhaseError("engine_modes cli cuda vs cpu VCF: " + "; ".join(problems[:3]))
+    windows = -(-MODES_CLI_LOCI // 1024)
+    res["cli"] = {
+        "n_loci": MODES_CLI_LOCI, "records": n_called, "call_s": call_s,
+        "call_loci_per_s": MODES_CLI_LOCI / call_s, "k1_launches": cli_launches,
+        "k1_launches_per_window": cli_launches / windows,
+        "cpu_2k_call_s": cpu_s, "cpu_vs_cuda_topk_swapped_lines": swapped,
+    }
+    res["prior_table_trio"] = prior_table_seconds()
+    res["k1_launches"] = launches
+    return res, launches
+
+
 def main():
     sys.meta_path.insert(0, refuse_jax)
     import torch
@@ -973,6 +1181,9 @@ def main():
     (work / "homopolymer").mkdir()
     e, hp_launches = phase_homopolymer(work / "homopolymer")
     emit(e)
+    (work / "engine_modes").mkdir()
+    f, mode_launches = phase_engine_modes(work / "engine_modes")
+    emit(f)
     repo_attempts = []
     for name, stack in refuse_jax.attempts:
         print(f"chip_smoke: refused an import of {name} from:\n{stack}", file=sys.stderr)
@@ -986,7 +1197,8 @@ def main():
         **{k: case[k] for k in ("B", "Xp", "Yp", "tile")}, **timing(case)}}
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
+        "replaces": K1_REPLACES, "launches": launches + mode_launches,
+        "launches_by_phase": {"cli": launches, "engine_modes": mode_launches},
         "max_abs_err": a["max_abs_err"], **timing(bench), "library_ms": None,
     }] + [{
         "name": f"pairhmm_{kind}", "route": "cuda", "source": K23_SOURCE,

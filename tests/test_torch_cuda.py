@@ -11,7 +11,9 @@ same finiteness (float32 logs, read sums in another order); K2, K3 and K4
 against theirs 1e-4 * max(1, |x|) (float32 column sums in another order, the
 D scan in another association), the same finiteness and -1e30 exactly where
 the plain version gives it; the engine on the card against the engine on
-the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py.
+the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py, in
+tumor-normal and in chip_smoke.py phase (f)'s modes (--full-prior, l2fc,
+cyclic contamination).
 """
 
 import math
@@ -23,12 +25,15 @@ import torch
 from varlociraptor_tpu_torch.bench_utils import (
     K1_EDGE_CASES,
     PAIRHMM_TILE_WIDTHS,
+    cyclic_engine,
     engine_inputs,
+    full_prior_table,
     k1_edge_rows,
     pairhmm_edge_items,
     pairhmm_items,
     pairhmm_shape_items,
     pairhmm_tile_items,
+    l2fc_engine,
     tumor_normal_engine,
 )
 from varlociraptor_tpu_torch.compare import compare_outputs
@@ -132,6 +137,34 @@ def test_engine_on_the_card_matches_the_cpu(card):
     got = gpu.run(*inputs)
     assert k1.ll_classes.launches == n0 + 2
     ref = cpu.run(*inputs)
+    problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
+    assert not problems, problems[:5]
+
+
+def _mode_engine(name, device):
+    """(engine, joint prior table or None) of chip_smoke.py phase (f)'s
+    modes: (f1) tumor-normal with --full-prior, (f2) the l2fc scenario,
+    (f3) the three-sample contamination cycle."""
+    if name == "full_prior":
+        scenario, engine = tumor_normal_engine(resolution=0.01, device=device)
+        return engine, full_prior_table(scenario, engine)[0]
+    if name == "l2fc":
+        return l2fc_engine(device=device), None
+    return cyclic_engine(device=device), None
+
+
+@pytest.mark.parametrize("name,k1_per_call", [("full_prior", 2), ("l2fc", 3), ("cyclic", 3)])
+def test_engine_modes_on_the_card_match_the_cpu(card, name, k1_per_call):
+    gpu, table = _mode_engine(name, card)
+    cpu, _ = _mode_engine(name, "cpu")
+    L = 24
+    inputs = engine_inputs(cpu, n_loci=L, depth=32, seed=6)
+    pj = None if table is None else np.ascontiguousarray(
+        np.broadcast_to(table, (L,) + table.shape))
+    n0 = k1.ll_classes.launches
+    got = gpu.run(*inputs, ln_prior_joint=pj)
+    assert k1.ll_classes.launches == n0 + k1_per_call
+    ref = cpu.run(*inputs, ln_prior_joint=pj)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
     assert not problems, problems[:5]
 

@@ -1,9 +1,12 @@
 """The port's posterior engine (ops/posterior.py) against the JAX package.
 
 * the setup state (convert.engine_state_from_jax) equals the port's own
-  __init__ state bit for bit, and from_state rebuilds the same engine;
+  __init__ state bit for bit, and from_state rebuilds the same engine, also
+  for engines with l2fc masks and contamination cycles;
 * run() on bench_utils.engine_inputs at two grid resolutions;
-* run_wire() on the same uint8 input buffer.
+* run_wire() on the same uint8 input buffer, with and without the
+  --full-prior ``pj`` section;
+* the call stage's refusals of what is not ported yet.
 
 Tolerances (varlociraptor_tpu_torch/compare.py): posteriors / marginal /
 joint 1e-4 * max(1, |x|); af 1e-4 (the MAP parabola amplifies one-ulp float32
@@ -26,6 +29,7 @@ from varlociraptor_tpu_torch.ops.compact_obs import (
     CU_FLAGS, CU_RO, CU_STRAND, N_CF, N_CU,
 )
 from varlociraptor_tpu_torch.ops.posterior import PosteriorEngine
+from test_torch_engine_modes import CASES, _mods
 
 
 def _engines(resolution):
@@ -42,17 +46,38 @@ def _assert_state_equal(a, b):
         assert x.tobytes() == y.tobytes(), k
 
 
-@pytest.mark.parametrize("resolution", [0.1, 0.01])
-def test_engine_state_bit_for_bit(resolution):
-    je, te = _engines(resolution)
+# tumor-normal at two resolutions, and engines with l2fc masks (star,
+# cyclic, chained over contaminated samples, a scenario with a swapped pair,
+# four samples) and contamination cycles (tests/test_torch_engine_modes.py)
+STATE_CASES = [0.1, 0.01, "star_l2fc", "cyclic_l2fc", "chained_l2fc_contaminated",
+               "l2fc_scenario", "fp_s4_l2fc", "cycle3", "rho4", "cycle3_l2fc"]
+
+
+@pytest.mark.parametrize("case", STATE_CASES, ids=str)
+def test_engine_state_bit_for_bit(case):
+    if isinstance(case, float):
+        je, te = _engines(case)
+    else:
+        je, te = (CASES[case][0](_mods(pkg)) for pkg in ("jax", "torch"))
     state = engine_state_from_jax(je)
     _assert_state_equal(state, te.state())
-    _assert_state_equal(
-        state, PosteriorEngine.from_state(state, device="cpu").state()
-    )
-    # U unique (nu, kappa) classes of the tumor's contaminated plane
-    (si, _by, _f), = te.pairs
-    assert len(te.pair_class[si][0]) == {0.1: 76, 0.01: 711}[resolution]
+    rebuilt = PosteriorEngine.from_state(state, device="cpu")
+    _assert_state_equal(state, rebuilt.state())
+    if isinstance(case, float):
+        # U unique (nu, kappa) classes of the tumor's contaminated plane
+        (si, _by, _f), = te.pairs
+        assert len(te.pair_class[si][0]) == {0.1: 76, 0.01: 711}[case]
+        return
+    # the masks and the contamination graph survive the trip
+    assert rebuilt.branch_lfc_masks.keys() == je.branch_lfc_masks.keys()
+    for bi, lst in je.branch_lfc_masks.items():
+        for (a, b, m), (a2, b2, m2) in zip(lst, rebuilt.branch_lfc_masks[bi], strict=True):
+            assert (a, b) == (a2, b2) and a < b and np.array_equal(m, m2)
+    assert rebuilt.singletons == je.singletons
+    assert [rebuilt._component_cycle(c) for c in rebuilt.components] == [
+        je._component_cycle(c) for c in je.components
+    ]
+    assert bool(je.branch_lfc_masks) == (case.find("l2fc") >= 0)
 
 
 def _check(ref, got, engine):
@@ -82,7 +107,7 @@ def test_run_matches_jax(resolution, n_loci, depth):
         assert np.array_equal(got[k], again[k]), k
 
 
-def _wire_inputs(engine, L=48, D=16, Bc=3, seed=3):
+def _wire_inputs(engine, L=48, D=16, Bc=3, seed=3, full_prior=False):
     """A run_wire input buffer: flat observations of random depth per
     (locus, sample) with synth_observation_files' feature distributions."""
     rng = np.random.default_rng(seed)
@@ -119,7 +144,11 @@ def _wire_inputs(engine, L=48, D=16, Bc=3, seed=3):
         "hal": (rng.random(L) < 0.2).astype(np.uint8),
         "n_art": rng.integers(1, 9, L).astype(np.float32),
     }
-    spec = engine._in_wire_spec(Np, L, D, Bc, None)
+    pj_shape = None
+    if full_prior:
+        pj_shape = tuple(len(v) for v in engine.values_s)
+        arrays["pj"] = np.log(rng.uniform(0.05, 1.0, (L,) + pj_shape))
+    spec = engine._in_wire_spec(Np, L, D, Bc, pj_shape)
     return engine.pack_in_wire(spec, arrays), (Np, L, D, Bc)
 
 
@@ -140,9 +169,66 @@ def test_run_wire_matches_jax():
         assert np.array_equal(got[k], again[k]), k
 
 
-def test_modes_outside_the_slice_raise():
-    _, te = _engines(0.1)
-    inputs = tbu.engine_inputs(te, n_loci=4, depth=8, seed=0)
-    G = [len(v) for v in te.values_s]
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        te.run(*inputs, ln_prior_joint=np.zeros((4, *G), np.float32))
+def test_run_wire_full_prior_matches_jax():
+    """The --full-prior joint prior in the wire's ``pj`` section: both
+    packages pack the same bytes and unpack the same outputs."""
+    je, te = _engines(0.1)
+    buf, dims = _wire_inputs(je, full_prior=True)
+    tbuf, _ = _wire_inputs(te, full_prior=True)
+    assert np.array_equal(buf, tbuf)
+    pj_shape = tuple(len(v) for v in te.values_s)
+    ref = je.run_wire(buf, *dims, pj_shape=pj_shape)
+    got = te.run_wire(buf, *dims, pj_shape=pj_shape)
+    _check(ref, got, te)
+    # the joint prior moves the posteriors: the section is read
+    plain = te.run_wire(*_wire_inputs(te)[:1], *dims)
+    assert not np.allclose(plain["posteriors"], got["posteriors"])
+
+
+def _ref_obs_file(path):
+    """A reference observation VCF (the v15 format) with one SNV."""
+    from varlociraptor_tpu_torch.calling.ref_obs import ReferenceObservationWriter
+    from varlociraptor_tpu_torch.calling.variants import VariantInfo
+    from varlociraptor_tpu_torch.evidence.observation import (
+        Pileup, ReadObservation, set_prob_mapping, set_prob_overlap,
+    )
+
+    obs = ReadObservation()
+    set_prob_mapping(obs, -1e-9)
+    obs.prob_alt, obs.prob_ref = -1e-9, math.log(1e-8)
+    obs.prob_missed_allele = math.log(0.5)
+    obs.prob_sample_alt = 0.0
+    set_prob_overlap(obs, -math.inf)
+    with ReferenceObservationWriter(str(path), "sample") as w:
+        w.write_record(
+            VariantInfo(kind="snv", chrom="chr1", pos=100, ref_allele="A",
+                        alt_allele="T"),
+            Pileup(read_observations=[obs]),
+        )
+    return str(path)
+
+
+@pytest.mark.parametrize(
+    "mode", ["call_processor", "candidate_filter", "reference_observations", "mesh"]
+)
+def test_modes_outside_the_slice_raise(mode, tmp_path):
+    """What the call stage still refuses: the legacy per-WorkItem caller
+    (plug-in hooks and reference observation files, ROADMAP A8b) and the
+    device mesh (ROADMAP A11)."""
+    from varlociraptor_tpu_torch.calling.call import call_generic
+    from varlociraptor_tpu_torch.grammar.scenario import Scenario
+
+    scenario = Scenario({
+        "samples": {"sample": {"universe": "[0.0,1.0]", "ploidy": 2}},
+        "events": {"present": "sample:]0.0,1.0]"},
+    })
+    kw, obs = {"device": "cpu"}, {"sample": str(tmp_path / "missing.obs")}
+    if mode == "reference_observations":
+        obs = {"sample": _ref_obs_file(tmp_path / "sample.obs.vcf")}
+    elif mode == "mesh":
+        kw["mesh"] = object()
+    else:
+        kw[mode] = lambda *a: None
+    roadmap = "ROADMAP A11" if mode == "mesh" else "ROADMAP A8b"
+    with pytest.raises(NotImplementedError, match=roadmap):
+        call_generic(scenario, obs, str(tmp_path / "calls.vcf"), **kw)

@@ -48,9 +48,65 @@ def synth_batch(n_loci=256, n_samples=2, depth=64, n_combos=9, seed=0):
     return feats, mask, bias_alt, bias_ref, bias_any, combo_active
 
 
-def tumor_normal_engine(resolution=0.01, purity=0.75, device="cuda"):
-    """(scenario, engine) of the headline tumor-normal configuration."""
-    scenario = tumor_normal_scenario(purity)
+# a mendelian trio at per-sample resolution 0.1 (tests/test_scope_lifts.py's
+# TRIO_SCENARIO)
+TRIO_SCENARIO = {
+    "samples": {
+        "mother": {"universe": "[0.0,1.0]", "ploidy": 2, "resolution": 0.1},
+        "father": {"universe": "[0.0,1.0]", "ploidy": 2, "resolution": 0.1},
+        "child": {
+            "universe": "[0.0,1.0]",
+            "ploidy": 2,
+            "resolution": 0.1,
+            "inheritance": {"mendelian": {"from": ["mother", "father"]}},
+        },
+    },
+    "species": {"heterozygosity": 0.001, "germline-mutation-rate": 1e-3},
+    "events": {
+        "germline": "mother:0.5 & father:0.0 & child:0.5",
+        "denovo": "mother:0.0 & father:0.0 & child:0.5",
+    },
+}
+
+# tumor / relapse / normal with tumor and relapse contaminated by normal (the
+# shape of tests/test_scope_lifts.py's CONTAM_TRIO_SCENARIO) at per-sample
+# resolution 0.01, with disjoint somatic events split by l2fc(relapse, tumor):
+# one with two constraints on the pair (their masks are AND-ed) and one
+# written as a sample-vs-sample comparison (which desugars to l2fc)
+L2FC_SCENARIO = {
+    "samples": {
+        "normal": {"universe": "[0.0,1.0]", "ploidy": 2, "resolution": 0.01},
+        "tumor": {
+            "universe": "[0.0,1.0]",
+            "resolution": 0.01,
+            "contamination": {"by": "normal", "fraction": 0.25},
+        },
+        "relapse": {
+            "universe": "[0.0,1.0]",
+            "resolution": 0.01,
+            "contamination": {"by": "normal", "fraction": 0.4},
+        },
+    },
+    "species": {"heterozygosity": 0.001},
+    "events": {
+        "somatic_stable": "tumor:]0.0,1.0] & relapse:]0.0,1.0] & normal:0.0 "
+                          "& l2fc(relapse, tumor) >= 0 & l2fc(relapse, tumor) <= 1",
+        "somatic_expanded": "tumor:]0.0,1.0] & relapse:]0.0,1.0] & normal:0.0 "
+                            "& l2fc(relapse, tumor) > 1",
+        "somatic_receding": "tumor > relapse & normal:0.0",
+        "germline": "tumor:]0.0,1.0] & normal:0.5 & relapse:]0.0,1.0]",
+    },
+}
+
+
+def scenario_engine(scenario, resolution=0.01, device="cuda",
+                    all_uniform_prior=True):
+    """(scenario, engine) of a ``Scenario`` (or its dict) on chr1, with the
+    call stage's sample configuration."""
+    from .grammar.scenario import Scenario
+
+    if isinstance(scenario, dict):
+        scenario = Scenario(scenario)
     events, grid_points = compile_scenario_events(scenario, "chr1")
     grid = AFGrid.build(resolution, extra_points=grid_points)
     samples = []
@@ -72,18 +128,80 @@ def tumor_normal_engine(resolution=0.01, purity=0.75, device="cuda"):
         grid,
         samples,
         resolution=resolution,
-        all_uniform_prior=True,
+        all_uniform_prior=all_uniform_prior,
         n_artifact_combos=len(FULL_COMBOS_DEFAULT) - 1,
         device=device,
     )
     return scenario, engine
 
 
+def tumor_normal_engine(resolution=0.01, purity=0.75, device="cuda"):
+    """(scenario, engine) of the headline tumor-normal configuration."""
+    return scenario_engine(tumor_normal_scenario(purity), resolution, device)
+
+
+def l2fc_engine(device="cuda"):
+    """Engine of :data:`L2FC_SCENARIO` at resolution 0.01 with the
+    absent-only prior split (the star-component l2fc path)."""
+    return scenario_engine(L2FC_SCENARIO, 0.01, device,
+                           all_uniform_prior=False)[1]
+
+
+def cyclic_engine(device="cuda"):
+    """Engine of a three-sample contamination cycle (a by b, b by c, c by
+    a, fraction 0.2 each) at resolution 0.01 with the events absent and
+    present (every sample in ]0, 1])."""
+    from .ops.event_program import BranchSpec, EventSpec, SpectrumSpec, absent_event
+
+    present = EventSpec(
+        name="present",
+        branches=(BranchSpec(spectra=tuple(
+            SpectrumSpec.from_range(0.0, 1.0, left_exclusive=True)
+            for _ in range(3)
+        )),),
+    )
+    samples = [
+        SampleConfig(name, contaminated_by=(i + 1) % 3,
+                     contamination_fraction=0.2)
+        for i, name in enumerate("abc")
+    ]
+    grid = AFGrid.build(0.01, extra_points=[0.5])
+    return PosteriorEngine(
+        [absent_event(3), present], grid, samples, resolution=0.01,
+        n_artifact_combos=len(FULL_COMBOS_DEFAULT) - 1, device=device,
+    )
+
+
+def full_prior_table(scenario, engine):
+    """The --full-prior joint prior of an SNV on chr1 on ``engine``'s
+    per-sample active subgrids, as the call stage builds it, and the host
+    seconds it took."""
+    import time
+
+    from .calling.call import CallOptions, GenericCaller
+    from .calling.variants import VariantInfo
+
+    caller = GenericCaller(
+        scenario, CallOptions(full_prior=True, resolution=engine.resolution),
+        device=engine.device,
+    )
+    t0 = time.perf_counter()
+    table = caller._full_prior_table(
+        "chr1",
+        VariantInfo(kind="snv", chrom="chr1", pos=0, ref_allele="A",
+                    alt_allele="T"),
+        caller._prior_for("chr1", "snv"),
+        engine.values_s,
+    )
+    return table, time.perf_counter() - t0
+
+
 def engine_inputs(engine, n_loci=256, depth=64, seed=0):
     from .ops.biases import compact_combos
 
     feats, mask, ba, br, by, active = synth_batch(
-        n_loci=n_loci, depth=depth, n_combos=len(FULL_COMBOS_DEFAULT), seed=seed
+        n_loci=n_loci, n_samples=engine.n_samples, depth=depth,
+        n_combos=len(FULL_COMBOS_DEFAULT), seed=seed,
     )
     # same combo-axis compaction the caller applies (call.py)
     ba, br, by, active, _ = compact_combos(ba, br, by, active)
@@ -618,6 +736,54 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
             "n_candidates": n_total, "reads": reads, "truth": truth}
 
 
+def _write_synth_sample(path, name, variants, vaf, rng, min_depth, max_depth):
+    """One sample's observation file for ``variants``: depths drawn from
+    [min_depth, max_depth], each read alt with probability ``vaf`` of its
+    locus (synth_batch's feature distributions).  Returns the path."""
+    from .calling.observations import ObservationWriter, ObsColumns
+    from .evidence.observation import HOMOPOLYMER_NONE
+    from .ops.compact_obs import (
+        CF_PDO, CF_PHA, CF_PHB, CF_PHV, CF_PM, CF_PME, CF_PR, CF_PSA, CF_PA,
+        CU_FLAGS, CU_RO, CU_STRAND, FLAG_IS_MAX_MAPQ, FLAG_PAIRED, N_CF, N_CU,
+    )
+
+    n_loci = len(variants)
+    strong = math.log(1 - 1e-4)
+    weak = math.log(1e-4)
+    counts = rng.integers(min_depth, max_depth + 1, n_loci)
+    N = int(counts.sum())
+    is_alt = rng.random(N) < np.repeat(vaf, counts)
+    f16 = np.zeros((N, N_CF), np.float16)
+    f16[:, CF_PM] = math.log(1 - 1e-5)
+    f16[:, CF_PA] = np.where(is_alt, strong, weak)
+    f16[:, CF_PR] = np.where(is_alt, weak, strong)
+    f16[:, CF_PME] = math.log(0.5)
+    f16[:, CF_PSA] = 0.0
+    f16[:, CF_PDO] = -np.inf
+    f16[:, CF_PHB] = math.log(1.0 / 100)
+    f16[:, CF_PHA] = np.nan
+    f16[:, CF_PHV] = np.nan
+    u8 = np.zeros((N, N_CU), np.uint8)
+    u8[:, CU_STRAND] = rng.integers(1, 3, N)
+    u8[:, CU_RO] = rng.integers(1, 3, N)
+    u8[:, CU_FLAGS] = FLAG_PAIRED | np.where(
+        rng.random(N) < 0.9, FLAG_IS_MAX_MAPQ, 0
+    )
+    cols = ObsColumns(
+        f16, u8, np.full(N, HOMOPOLYMER_NONE, np.int8),
+        np.full(N, -1, np.int16), np.full(N, -1, np.int64),
+    )
+    off = np.concatenate([[0], np.cumsum(counts)])
+    with ObservationWriter(str(path), name) as w:
+        for s in range(0, n_loci, 1024):
+            e = min(n_loci, s + 1024)
+            w.write_window(
+                variants[s:e], counts[s:e],
+                cols.slice(int(off[s]), int(off[e])), counts[s:e],
+            )
+    return str(path)
+
+
 def synth_observation_files(out_dir, n_loci=1000, seed=0, purity=0.75,
                             frac_somatic=0.05, frac_germline=0.05,
                             min_depth=20, max_depth=64, chrom="chr1"):
@@ -638,13 +804,6 @@ def synth_observation_files(out_dir, n_loci=1000, seed=0, purity=0.75,
 
     from .calling.variants import VariantInfo
 
-    from .calling.observations import ObservationWriter, ObsColumns
-    from .evidence.observation import HOMOPOLYMER_NONE
-    from .ops.compact_obs import (
-        CF_PDO, CF_PHA, CF_PHB, CF_PHV, CF_PM, CF_PME, CF_PR, CF_PSA, CF_PA,
-        CU_FLAGS, CU_RO, CU_STRAND, FLAG_IS_MAX_MAPQ, FLAG_PAIRED, N_CF, N_CU,
-    )
-
     rng = np.random.default_rng(seed)
     u = rng.random(n_loci)
     somatic = u < frac_somatic
@@ -664,44 +823,45 @@ def synth_observation_files(out_dir, n_loci=1000, seed=0, purity=0.75,
                     alt_allele=bases[a])
         for p, r, a in zip(pos, ref_i, alt_i)
     ]
-    strong = math.log(1 - 1e-4)
-    weak = math.log(1e-4)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    paths = []
-    for name, vaf in (("tumor", vaf_tumor), ("normal", vaf_normal)):
-        counts = rng.integers(min_depth, max_depth + 1, n_loci)
-        N = int(counts.sum())
-        is_alt = rng.random(N) < np.repeat(vaf, counts)
-        f16 = np.zeros((N, N_CF), np.float16)
-        f16[:, CF_PM] = math.log(1 - 1e-5)
-        f16[:, CF_PA] = np.where(is_alt, strong, weak)
-        f16[:, CF_PR] = np.where(is_alt, weak, strong)
-        f16[:, CF_PME] = math.log(0.5)
-        f16[:, CF_PSA] = 0.0
-        f16[:, CF_PDO] = -np.inf
-        f16[:, CF_PHB] = math.log(1.0 / 100)
-        f16[:, CF_PHA] = np.nan
-        f16[:, CF_PHV] = np.nan
-        u8 = np.zeros((N, N_CU), np.uint8)
-        u8[:, CU_STRAND] = rng.integers(1, 3, N)
-        u8[:, CU_RO] = rng.integers(1, 3, N)
-        u8[:, CU_FLAGS] = FLAG_PAIRED | np.where(
-            rng.random(N) < 0.9, FLAG_IS_MAX_MAPQ, 0
-        )
-        cols = ObsColumns(
-            f16, u8, np.full(N, HOMOPOLYMER_NONE, np.int8),
-            np.full(N, -1, np.int16), np.full(N, -1, np.int64),
-        )
-        path = out_dir / f"{name}.obs"
-        off = np.concatenate([[0], np.cumsum(counts)])
-        with ObservationWriter(str(path), name) as w:
-            for s in range(0, n_loci, 1024):
-                e = min(n_loci, s + 1024)
-                w.write_window(
-                    variants[s:e], counts[s:e],
-                    cols.slice(int(off[s]), int(off[e])), counts[s:e],
-                )
-        paths.append(str(path))
+    paths = [
+        _write_synth_sample(out_dir / f"{name}.obs", name, variants, vaf, rng,
+                            min_depth, max_depth)
+        for name, vaf in (("tumor", vaf_tumor), ("normal", vaf_normal))
+    ]
     truth = {"somatic": pos[somatic], "germline": pos[germline]}
     return paths[0], paths[1], truth
+
+
+def synth_sample_observation_files(out_dir, sample_names, n_loci=200, seed=0,
+                                   min_depth=20, max_depth=64, chrom="chr1"):
+    """One observation file per sample of a scenario, for ``n_loci`` SNV
+    candidates: a third of the loci are reference in every sample, the rest
+    draw each sample's VAF from {0, 0.5, 1, U(0.05, 1)}.  Reads as in
+    :func:`synth_observation_files`.  Returns {sample name: path}."""
+    from pathlib import Path
+
+    from .calling.variants import VariantInfo
+
+    rng = np.random.default_rng(seed)
+    S = len(sample_names)
+    kind = rng.integers(0, 4, (n_loci, S))
+    vafs = np.choose(kind, [np.zeros((n_loci, S)), np.full((n_loci, S), 0.5),
+                            np.ones((n_loci, S)), rng.uniform(0.05, 1.0, (n_loci, S))])
+    vafs[rng.random(n_loci) < 1 / 3] = 0.0
+    bases = np.array(list("ACGT"))
+    ref_i = rng.integers(0, 4, n_loci)
+    alt_i = (ref_i + rng.integers(1, 4, n_loci)) % 4
+    variants = [
+        VariantInfo(kind="snv", chrom=chrom, pos=1000 + 10 * i,
+                    ref_allele=bases[r], alt_allele=bases[a])
+        for i, (r, a) in enumerate(zip(ref_i, alt_i))
+    ]
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return {
+        name: _write_synth_sample(out_dir / f"{name}.obs", name, variants,
+                                  vafs[:, si], rng, min_depth, max_depth)
+        for si, name in enumerate(sample_names)
+    }

@@ -162,6 +162,48 @@ class GenericCaller:
             self._engines[key] = eng
         return self._engines[key]
 
+    def _full_prior_table(self, contig, variant, prior, value_lists):
+        """Joint prior table for --full-prior on the engine's per-sample
+        active subgrids (the axes the engine integrates), cached per
+        (contig, vartype, per-variant overrides): the table is
+        locus-independent unless the candidate carries HETEROZYGOSITY /
+        SOMATIC_EFFECTIVE_MUTATION_RATE INFO overrides (prior.rs:251-271)."""
+        key = (
+            contig,
+            variant.kind,
+            variant.heterozygosity,
+            variant.somatic_effective_mutation_rate,
+            len(value_lists),
+        )
+        cache = getattr(self, "_full_prior_tables", None)
+        if cache is None:
+            cache = self._full_prior_tables = {}
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        shapes = tuple(len(v) for v in value_lists)
+        size = int(np.prod(shapes))
+        if size > 2_000_000:
+            from ..errors import InvalidPriorConfigurationError
+
+            raise InvalidPriorConfigurationError(
+                f"--full-prior joint grid has {size} cells over "
+                f"{len(value_lists)} samples; coarsen per-sample "
+                "`resolution:` in the scenario"
+            )
+        vals = [np.asarray(v, dtype=np.float64) for v in value_lists]
+        prior.is_absent_only = False
+        try:
+            table = np.zeros(shapes, dtype=np.float32)
+            for idx in np.ndindex(*shapes):
+                table[idx] = prior.compute(
+                    [vals[s][idx[s]] for s in range(len(vals))]
+                )
+        finally:
+            prior.is_absent_only = True
+        cache[key] = table
+        return table
+
 
 _FORMAT_KEYS = (
     "DP", "AF", "OBS", "SAOBS", "SROBS", "OOBS",
@@ -192,11 +234,7 @@ def call_generic(
     if call_processor is not None or candidate_filter is not None:
         raise NotImplementedError(
             "call_processor / candidate_filter need the legacy per-WorkItem "
-            "path, which is not ported yet: ROADMAP A8"
-        )
-    if options.full_prior:
-        raise NotImplementedError(
-            "--full-prior (ln_prior_joint scans) is not ported yet: ROADMAP A8"
+            "path, which is not ported yet: ROADMAP A8b"
         )
     if not any(name in observation_paths for name in scenario.sample_names):
         raise ValueError("no observation files given")
@@ -252,7 +290,7 @@ def call_generic(
         raise NotImplementedError(
             "observation files without columnar windows (reference "
             "observation BCF/VCF) need the legacy per-WorkItem path, which "
-            "is not ported yet: ROADMAP A8"
+            "is not ported yet: ROADMAP A8b"
         )
 
     window_n = options.effective_batch()

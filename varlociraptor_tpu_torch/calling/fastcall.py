@@ -174,8 +174,14 @@ class ColumnarCaller(GenericCaller):
                 gate_cache[ck] = g
             branch_gates[li] = g
 
-        # priors via unique (vartype, overrides) keys
+        # priors via unique (vartype, overrides) keys; --full-prior adds the
+        # joint prior on the engine's per-sample active subgrids
         ln_prior_absent = np.zeros(L, dtype=np.float32)
+        ln_prior_joint = None
+        if self.options.full_prior:
+            value_lists = [engine.values_s[si] for si in range(S)]
+            shape = (L,) + tuple(len(v) for v in value_lists)
+            ln_prior_joint = np.zeros(shape, dtype=np.float32)
         pa_cache = {}
         for li, v in enumerate(cb.variants):
             pkey = (v.kind, v.heterozygosity, v.somatic_effective_mutation_rate)
@@ -184,8 +190,16 @@ class ColumnarCaller(GenericCaller):
                 prior = self._prior_for(contig, v.kind)
                 prior.variant_heterozygosity = v.heterozygosity
                 prior.variant_somatic_rate = v.somatic_effective_mutation_rate
-                hit = pa_cache[pkey] = prior.prob_absent()
-            ln_prior_absent[li] = hit
+                pa = prior.prob_absent()
+                pj = (
+                    self._full_prior_table(contig, v, prior, value_lists)
+                    if ln_prior_joint is not None
+                    else None
+                )
+                hit = pa_cache[pkey] = (pa, pj)
+            ln_prior_absent[li] = hit[0]
+            if ln_prior_joint is not None:
+                ln_prior_joint[li] = hit[1]
 
         # ---- STATIC two-bucket depth routing: one "bulk" bucket at D=64
         # (covers WGS-typical pileups) and one rare "deep" bucket at the
@@ -222,6 +236,7 @@ class ColumnarCaller(GenericCaller):
             fr_b = fwd_rate[idx]
             hal_b = has_alt_loci[idx]
             na_b = n_artifact_active[idx]
+            pj_b = ln_prior_joint[idx] if ln_prior_joint is not None else None
             f16f, u8f, hilf, rowf, counts = cb.pack_flat(depth, locus_idx=idx)
             counts_full[idx] = counts
             if Lb < Lp:
@@ -238,6 +253,8 @@ class ColumnarCaller(GenericCaller):
                 fr_b = _pad(fr_b, 0.5)
                 hal_b = _pad(hal_b)
                 na_b = _pad(na_b, 1.0)
+                if pj_b is not None:
+                    pj_b = _pad(pj_b)
             # bucket the flat obs axis (pow2 and 1.5*pow2 steps, >=4096)
             N = len(rowf)
             p2 = 1 << max(0, (N - 1)).bit_length()
@@ -264,10 +281,14 @@ class ColumnarCaller(GenericCaller):
                 "counts": counts_p, "sm": sm, "sa": sa, "bg": bg,
                 "pa": pa_b, "fr": fr_b, "hal": hal_b, "n_art": na_b,
             }
-            spec = engine._in_wire_spec(Np, Lp, depth, sm.shape[1], None)
+            pj_shape = None
+            if pj_b is not None:
+                arrays["pj"] = pj_b
+                pj_shape = tuple(pj_b.shape[1:])
+            spec = engine._in_wire_spec(Np, Lp, depth, sm.shape[1], pj_shape)
             buf = engine.pack_in_wire(spec, arrays)
             pending = engine.run_wire(
-                buf, Np, Lp, depth, sm.shape[1], fetch=False
+                buf, Np, Lp, depth, sm.shape[1], pj_shape=pj_shape, fetch=False
             )
             groups.append((idx, Lb, pending))
         meta = {

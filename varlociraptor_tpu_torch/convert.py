@@ -3,10 +3,11 @@ setup tables, the pair-HMM's gap model and the alignment properties.
 
 The posterior engine's "weights" are its setup tables: per-sample active
 subgrids, spectra and integration masks, support classes, the unique
-(nu, kappa) classes of each contaminated plane, the contamination forest and
-the AFD backbone.  :func:`engine_state` flattens them into a dict of numpy
-arrays; it reads only attributes that the JAX ``PosteriorEngine`` and the
-port's share, so the same function serves both:
+(nu, kappa) classes of each contaminated plane, the l2fc masks of each
+constrained branch, the contamination graph and the AFD backbone.
+:func:`engine_state` flattens them into a dict of numpy arrays; it reads
+only attributes that the JAX ``PosteriorEngine`` and the port's share, so
+the same function serves both:
 
     state = engine_state_from_jax(jax_engine)          # no torch needed
     engine = PosteriorEngine.from_state(state, "cuda")  # no jax needed
@@ -50,11 +51,13 @@ def engine_state(engine) -> dict:
             [-1 if p is None else p for p in engine.parent], dtype=np.int64
         ),
     }
-    # the JAX engine keeps l2fc masks by branch, the port only their branches
-    lfc = getattr(engine, "lfc_branches", None)
-    if lfc is None:
-        lfc = sorted(engine.branch_lfc_masks)
-    st["lfc_branches"] = np.asarray(lfc, dtype=np.int64)
+    # l2fc masks per branch, in the engine's order: (a, b) with a < b and
+    # the [Ga, Gb] bool mask over the two samples' active subgrids
+    for bi, lst in engine.branch_lfc_masks.items():
+        for k, (a, b, m) in enumerate(lst):
+            st[f"branch_lfc_masks/{bi}/{k}/a"] = np.int64(a)
+            st[f"branch_lfc_masks/{bi}/{k}/b"] = np.int64(b)
+            st[f"branch_lfc_masks/{bi}/{k}/mask"] = np.asarray(m, dtype=bool)
     frac = np.zeros(S, dtype=np.float64)
     for si, _by, f in engine.pairs:
         frac[si] = f

@@ -90,10 +90,15 @@ def ll_classes(a, r, m, psa, nu, kappa):
     if err != 0:
         raise RuntimeError(f"ll_classes kernel launch failed: CUDA error {err}")
     ll_classes.launches += 1
+    if launch_hook is not None:
+        launch_hook(N, U, D)
     return out
 
 
 ll_classes.launches = 0
+# called as launch_hook(N, U, D) after each kernel launch (chip_smoke.py
+# records K1's launch shapes on the main path with it)
+launch_hook = None
 
 
 def ll_classes_folded(a, r, m, c, psa, mask, nu, kappa):

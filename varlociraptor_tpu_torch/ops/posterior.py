@@ -1,9 +1,9 @@
 """Grid posterior engine (torch): batched Bayesian event evaluation.
 
-Counterpart of ``varlociraptor_tpu/ops/posterior.py`` in the configurations
-the call stage runs (tumor-normal and other scenarios without l2fc
-constraints, cyclic contamination or ``--full-prior``).  Per event and
-branch (= flattened tree path):
+Counterpart of ``varlociraptor_tpu/ops/posterior.py`` in every mode of the
+reference's engine: contamination forests and cycles, l2fc constraints and
+the ``--full-prior`` joint prior.  Per event and branch (= flattened tree
+path):
 
   value = bias_prior + prior_event + logsumexp_{joint grid} [
               sum_s (loglik_s[g_s] + weights_s[g_s]) ]
@@ -11,7 +11,12 @@ branch (= flattened tree path):
 with per-sample integration weights computed from the per-locus depth, the
 clear-ref shortcut, and the absent-only prior applied exactly by splitting
 out the all-zero joint grid point.  Contamination pairs are contracted by
-tree variable elimination, each child axis as a shifted-exp einsum.
+tree variable elimination, each child axis as a shifted-exp einsum; a
+contamination cycle of length >= 3 keeps a two-axis frontier around the
+cycle.  Branches with l2fc constraints re-contract the constrained samples
+jointly under pairwise grid masks, and ``--full-prior`` evaluates the prior
+pointwise on the joint grid.  The reference's ``lax.scan`` contractions are
+plain loops over the scanned grid axis with a float32 ``logaddexp`` carry.
 
 The host setup (per-sample active subgrids, spectra, support classes, the
 unique (nu, kappa) classes of each contaminated plane) is a numpy copy of the
@@ -126,6 +131,31 @@ def range_weights(grid, start, end, left_excl, right_excl, n_obs):
     return torch.where(
         inside & (width > 0), torch.log(torch.clamp(width, min=1e-38)), NEG_INF
     )
+
+
+def _lfc_components(lfc_list):
+    """Connected components of a branch's l2fc constraint graph (nodes =
+    samples, edges = pairwise masks)."""
+    parent = {}
+
+    def find(x):
+        parent.setdefault(x, x)
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, b, _ in lfc_list:
+        parent[find(a)] = find(b)
+    groups = {}
+    for entry in lfc_list:
+        groups.setdefault(find(entry[0]), []).append(entry)
+    return list(groups.values())
+
+
+def _log_mask(m):
+    """0 where a bool mask holds, -inf elsewhere (float32)."""
+    return np.where(np.asarray(m), 0.0, -np.inf).astype(np.float32)
 
 
 class SampleConfig:
@@ -354,10 +384,31 @@ class PosteriorEngine:
         )
         self.event_is_artifact = [ev.is_artifact for ev in events]
         self.event_all_absent = [ev.all_absent() for ev in events]
-        # branches carrying l2fc constraints (not ported: ROADMAP A8)
-        self.lfc_branches = [
-            bi for bi, (ei, br) in enumerate(self.branches) if br.lfcs
-        ]
+        # l2fc constraints: per-branch pairwise [Ga,Gb] masks over the two
+        # samples' active subgrids, canonicalised to (min, max) sample order;
+        # masks on the same pair are AND-ed (utils/log2_fold_change.rs)
+        self.branch_lfc_masks = {}  # bi -> list[(sample_a, sample_b, mask)]
+        for bi, (ei, br) in enumerate(self.branches):
+            if not br.lfcs:
+                continue
+            by_pair = {}
+            for lfc in br.lfcs:
+                va_list = self.values_s[lfc.sample_a].astype(np.float64)
+                vb_list = self.values_s[lfc.sample_b].astype(np.float64)
+                m = np.zeros((len(va_list), len(vb_list)), dtype=bool)
+                for ia, va in enumerate(va_list):
+                    for ib, vb in enumerate(vb_list):
+                        m[ia, ib] = lfc.holds(va, vb)
+                if lfc.sample_a <= lfc.sample_b:
+                    key = (lfc.sample_a, lfc.sample_b)
+                else:
+                    key = (lfc.sample_b, lfc.sample_a)
+                    m = np.ascontiguousarray(m.T)
+                prev = by_pair.get(key)
+                by_pair[key] = m if prev is None else (prev & m)
+            self.branch_lfc_masks[bi] = [
+                (a, b, m) for (a, b), m in by_pair.items()
+            ]
 
         # contraction units: the contamination graph is a forest (each sample
         # has at most one contaminant parent)
@@ -408,6 +459,7 @@ class PosteriorEngine:
                 for si, by, frac in self.pairs
             }
         self.root_samples = [si for si in range(S) if self.parent[si] is None]
+        self.singletons = [c[0] for c in self.components if len(c) == 1]
 
     def state(self) -> dict:
         """The engine's setup tables as numpy arrays (see ``convert.py``)."""
@@ -450,7 +502,17 @@ class PosteriorEngine:
         self.n_branches = len(self.branch_event)
         self.event_is_artifact = [bool(x) for x in state["event_is_artifact"]]
         self.event_all_absent = [bool(x) for x in state["event_all_absent"]]
-        self.lfc_branches = [int(x) for x in state["lfc_branches"]]
+        lfc = {}
+        for k in state:
+            if k.startswith("branch_lfc_masks/") and k.endswith("/mask"):
+                _, bi, j, _ = k.split("/")
+                pre = k[: -len("mask")]
+                lfc.setdefault(int(bi), {})[int(j)] = (
+                    int(state[pre + "a"]), int(state[pre + "b"]), state[k],
+                )
+        self.branch_lfc_masks = {
+            bi: [per[j] for j in sorted(per)] for bi, per in sorted(lfc.items())
+        }
         self.parent = [None if p < 0 else int(p) for p in state["parent"]]
         self.contamination_fraction = [
             float(f) for f in state["contamination_fraction"]
@@ -473,6 +535,10 @@ class PosteriorEngine:
     def _to_device(self, device):
         """Constant tables as tensors on the engine's device."""
         dev = self.device = resolve_device(device)
+        # steps taken by the grid-axis loops (star l2fc, l2fc enumeration,
+        # contamination cycles, --full-prior trio / generic), for the
+        # launch accounting of chip_smoke.py
+        self.loop_steps = 0
 
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
@@ -520,6 +586,21 @@ class PosteriorEngine:
         self._backbone_t = [
             t(self._afd_backbone(si).astype(np.int64)) for si in range(S)
         ]
+        # l2fc masks as log masks (0 / -inf): per branch, and per sample
+        # pair stacked over branches [NB, Ga, Gb] for --full-prior
+        self._lfc_t = {
+            bi: [(a, b, t(_log_mask(m))) for a, b, m in lst]
+            for bi, lst in self.branch_lfc_masks.items()
+        }
+        by_pair = {}
+        for bi, lst in self.branch_lfc_masks.items():
+            for a, b, m in lst:
+                if (a, b) not in by_pair:
+                    by_pair[(a, b)] = np.zeros(
+                        (self.n_branches,) + m.shape, dtype=np.float32
+                    )
+                by_pair[(a, b)][bi] += _log_mask(m)
+        self._lfc_by_pair_t = {k: t(v) for k, v in by_pair.items()}
 
     # ------------------------------------------------------------------
     def _weights_list(self, n_obs):
@@ -599,10 +680,10 @@ class PosteriorEngine:
         Returns [L,B,NB] (keep=None) or [L,B,NB,G_keep]."""
         from collections import deque
 
-        if len(self._component_cycle(comp)) >= 3:
-            raise NotImplementedError(
-                "cyclic contamination (a contamination cycle of length >= 3) "
-                "is not ported yet: ROADMAP A8"
+        cyc = self._component_cycle(comp)
+        if len(cyc) >= 3:
+            return self._component_reduce_cyclic(
+                comp, cyc, loglik, pair_logliks, w_list, keep
             )
         NB = self.n_branches
         adj = {si: set() for si in comp}
@@ -672,6 +753,465 @@ class PosteriorEngine:
             return out
         return _lse(out, dim=-1)
 
+    def _component_reduce_cyclic(
+        self, comp, cyc, loglik, pair_logliks, w_list, keep=None
+    ):
+        """Variable elimination for a rho-shaped component (one
+        contamination cycle of length >= 3 with trees hanging off it).
+
+        Tree nodes are eliminated into their parents first; the cycle is
+        then contracted into its base node with a two-axis frontier
+        [L,B,NB,G_i] per base grid point (the reference's [L,B,NB,G_i,
+        G_base] frontier, one g_base slice per loop step, each reduced by
+        direct logsumexp); last the keep->cycle path is walked back down."""
+        NB = self.n_branches
+        B = next(iter(pair_logliks.values())).shape[1]
+        cycset = set(cyc)
+
+        parts = {si: [w_list[si][:, None]] for si in comp}
+        for si in comp:
+            if self.parent[si] is None:
+                parts[si].append(loglik[si][:, :, None, :])
+
+        # attachment/base node on the cycle + the keep->cycle path
+        if keep is None or keep in cycset:
+            base = keep if keep is not None else cyc[0]
+            path = []
+        else:
+            path = [keep]
+            p = self.parent[keep]
+            while p not in cycset:
+                path.append(p)
+                p = self.parent[p]
+            base = p
+        path_set = set(path)
+
+        def S_of(v):
+            s = None
+            for p_ in parts.pop(v):
+                s = p_ if s is None else s + p_
+            return s.expand(s.shape[0], B, NB, s.shape[-1])
+
+        # 1) eliminate pure tree nodes into their parents, deepest first
+        def dist_to_cycle(v):
+            d, p = 0, v
+            while p not in cycset:
+                p = self.parent[p]
+                d += 1
+            return d
+
+        tree_nodes = [v for v in comp if v not in cycset and v not in path_set]
+        for v in sorted(tree_nodes, key=lambda v: -dist_to_cycle(v)):
+            u = self.parent[v]
+            msg = self._lse_contract(pair_logliks[v], S_of(v), self._support_t[v])
+            parts[u].append(msg)
+
+        # 2) contract the cycle into base (keeping g_base)
+        i0 = cyc.index(base)
+        order = cyc[i0:] + cyc[:i0]  # order[0]=base, parent(order[i])=order[i+1]
+        k = len(order)
+        S_cyc = [None] + [S_of(order[i]) for i in range(1, k)]
+        F0 = pair_logliks[order[0]]  # [L,B,G_base,G_b1]
+        Fk = pair_logliks[order[-1]]  # [L,B,G_bk-1,G_base]
+        cols = []
+        for gb in range(F0.shape[2]):
+            self.loop_steps += 1
+            T = F0[:, :, gb][:, :, None] + S_cyc[1]  # [L,B,NB,G_b1]
+            for i in range(1, k - 1):
+                Fi = pair_logliks[order[i]]  # [L,B,G_bi,G_bi+1]
+                T = _lse(T[..., :, None] + Fi[:, :, None], dim=-2)
+                T = T + S_cyc[i + 1]  # [L,B,NB,G_bi+1]
+            cols.append(_lse(T + Fk[:, :, None, :, gb], dim=-1))  # [L,B,NB]
+        parts[base].append(torch.stack(cols, dim=-1))  # [L,B,NB,G_base]
+
+        # 3) walk the keep path: eliminate base down toward keep
+        cur = base
+        for v in reversed(path):
+            F = torch.swapaxes(pair_logliks[v], -1, -2)  # [L,B,G_cur,G_v]
+            msg = self._lse_contract(F, S_of(cur), self._support_t[cur])
+            parts[v].append(msg)
+            cur = v
+
+        out = None
+        for p_ in parts[cur]:
+            out = p_ if out is None else out + p_
+        out = out.expand(out.shape[0], B, NB, out.shape[-1])
+        if keep is not None:
+            return out
+        return _lse(out, dim=-1)
+
+    def _lfc_group_joint(
+        self, constraints, nodes, loglik, pair_logliks, w_list, bi,
+        comp_of_sample,
+    ):
+        """Generic l2fc contraction: jointly enumerate the union of the
+        contamination components touched by a constraint cluster under all
+        its pairwise log masks (cyclic constraint graphs, chains over
+        contaminated samples, any contamination topology).  A loop over the
+        flattened grid product of all but the two largest axes keeps one
+        [L,B,Gx,Gy] slab per step.  Returns ([L,B] integral, [L,B]
+        all-zero-point value)."""
+        import itertools
+
+        union = sorted({s for n in nodes for s in comp_of_sample[n]})
+        joint_cells = int(
+            np.prod([len(self.values_s[s]) for s in union])
+        )
+        if joint_cells > 2_000_000:
+            raise ValueError(
+                f"l2fc constraint cluster spans a joint grid of "
+                f"{joint_cells} cells over samples {union}; coarsen "
+                "per-sample `resolution:` in the scenario"
+            )
+        L = w_list[0].shape[0]
+        B = (
+            next(iter(pair_logliks.values())).shape[1]
+            if pair_logliks
+            else next(iter(loglik.values())).shape[1]
+        )
+        d = {}
+        for s in union:
+            ds = w_list[s][:, bi][:, None, :]  # [L,1,Gs]
+            if self.parent[s] is None:
+                ds = ds + loglik[s]
+            d[s] = ds.expand(L, B, ds.shape[-1])
+        factors = []  # (x, y, tensor broadcastable to [L,B,Gx,Gy])
+        for s in union:
+            p = self.parent[s]
+            if p is not None:
+                factors.append((s, p, pair_logliks[s]))
+        for a, b, lm in constraints:
+            factors.append((a, b, lm[None, None]))
+
+        z = torch.zeros((L, B), device=w_list[0].device)
+        for s in union:
+            z = z + d[s][..., self.zero_s[s]]
+        for x2, y2, Fxy in factors:
+            z = z + Fxy[..., self.zero_s[x2], self.zero_s[y2]]
+
+        order = sorted(union, key=lambda s: d[s].shape[-1])
+        x, y = order[-2], order[-1]
+        lead = order[:-2]
+        slab_base = d[x][:, :, :, None] + d[y][:, :, None, :]
+        lead_factors = []
+        for a2, b2, Fab in factors:
+            if {a2, b2} <= {x, y}:
+                t = Fab if (a2, b2) == (x, y) else torch.swapaxes(Fab, -1, -2)
+                slab_base = slab_base + t
+            else:
+                lead_factors.append((a2, b2, Fab))
+        if not lead:
+            return _lse(slab_base, dim=(-2, -1)), z
+
+        lead_pos = {s: i for i, s in enumerate(lead)}
+        total = torch.full((L, B), NEG_INF, device=z.device)
+        for coords in itertools.product(*(range(d[s].shape[-1]) for s in lead)):
+            self.loop_steps += 1
+            slab = slab_base
+            for s in lead:
+                slab = slab + d[s][..., coords[lead_pos[s]]][:, :, None, None]
+            for a2, b2, Fab in lead_factors:
+                if a2 in lead_pos and b2 in lead_pos:
+                    v = Fab[:, :, coords[lead_pos[a2]], coords[lead_pos[b2]]]
+                    slab = slab + v[:, :, None, None]
+                elif a2 in lead_pos:
+                    v = Fab[:, :, coords[lead_pos[a2]]]  # [.,.,Gb]
+                    slab = slab + (
+                        v[:, :, :, None] if b2 == x else v[:, :, None, :]
+                    )
+                else:
+                    v = Fab[:, :, :, coords[lead_pos[b2]]]  # [.,.,Ga]
+                    slab = slab + (
+                        v[:, :, :, None] if a2 == x else v[:, :, None, :]
+                    )
+            total = torch.logaddexp(total, _lse(slab, dim=(-2, -1)))
+        return total, z
+
+    def _lfc_tree_eliminate(self, group, nodes, loglik, w_list, bi):
+        """Chained l2fc over singleton samples: eliminate the acyclic
+        constraint graph leaf-to-root with pairwise log-mask contractions.
+        Returns ([L,B] integral, [L,B] all-zero-point value)."""
+        from collections import deque
+
+        adj = {s: [] for s in nodes}
+        for a, b, lm in group:
+            adj[a].append((b, lm, True))  # mask oriented (a, b)
+            adj[b].append((a, lm, False))
+        root = nodes[0]
+        depth = {root: 0}
+        dq = deque([root])
+        while dq:
+            u = dq.popleft()
+            for v, _, _ in adj[u]:
+                if v not in depth:
+                    depth[v] = depth[u] + 1
+                    dq.append(v)
+        d = {
+            s: loglik[s] + w_list[s][:, bi][:, None, :]  # [L,B,Gs]
+            for s in nodes
+        }
+        z = None
+        for s in nodes:
+            zv = d[s][:, :, self.zero_s[s]]
+            z = zv if z is None else z + zv
+        for a, b, lm in group:
+            z = z + lm[self.zero_s[a], self.zero_s[b]]
+        done = set()
+        for v in sorted(nodes, key=lambda s: -depth[s]):
+            if v == root:
+                continue
+            # unique parent = the neighbour closer to the root
+            for u, lm, oriented_vu in adj[v]:
+                if depth[u] == depth[v] - 1 and (v, u) not in done:
+                    lmo = lm if oriented_vu else lm.T
+                    # lse over v's axis against the mask -> message to u
+                    d[u] = d[u] + _lse(d[v][:, :, :, None] + lmo[None, None], dim=2)
+                    done.add((v, u))
+                    break
+        return _lse(d[root], dim=-1), z
+
+    def _lfc_terms(self, T, Z, U, Uzero, loglik, pair_logliks, w_list):
+        """Branches with l2fc constraints: re-contract the constrained
+        samples jointly under their pairwise log masks.  T, Z [L,B,NB]
+        (updated in place on the constrained branches)."""
+        L, B = T.shape[0], T.shape[1]
+        dev = T.device
+        comp_of_sample = {}
+        for comp in self.components:
+            for s in comp:
+                comp_of_sample[s] = tuple(comp)
+        for bi, lfc_list in self._lfc_t.items():
+            coupled = {s for (a, b, _) in lfc_list for s in (a, b)}
+            coupled_comps = {comp_of_sample[s] for s in coupled}
+            t_bi = torch.zeros((L, B), device=dev)
+            z_bi = torch.zeros((L, B), device=dev)
+            for key, val in U.items():
+                if tuple(key[1:]) in coupled_comps:
+                    continue
+                t_bi = t_bi + val[:, :, bi]
+                z_bi = z_bi + Uzero[key][:, :, bi]
+            # constraint graph components; groups that touch the same
+            # contamination component merge into one cluster (their
+            # integrals share grid axes and may be counted only once)
+            lfc_groups = [list(g) for g in _lfc_components(lfc_list)]
+
+            def comps_of(group):
+                return {
+                    comp_of_sample[s]
+                    for (a, b, _) in group
+                    for s in (a, b)
+                    if len(comp_of_sample[s]) > 1
+                }
+
+            merged = True
+            while merged:
+                merged = False
+                for i in range(len(lfc_groups)):
+                    ci = comps_of(lfc_groups[i])
+                    for j in range(i + 1, len(lfc_groups)):
+                        if ci & comps_of(lfc_groups[j]):
+                            lfc_groups[i].extend(lfc_groups.pop(j))
+                            merged = True
+                            break
+                    if merged:
+                        break
+            for group in lfc_groups:
+                t_c, z_c = self._lfc_group_term(
+                    group, loglik, pair_logliks, w_list, bi, comp_of_sample
+                )
+                t_bi = t_bi + t_c
+                z_bi = z_bi + z_c
+            T[:, :, bi] = t_bi
+            Z[:, :, bi] = z_bi
+        return T, Z
+
+    def _lfc_group_term(self, group, loglik, pair_logliks, w_list, bi,
+                        comp_of_sample):
+        """([L,B] integral, [L,B] all-zero-point value) of one constraint
+        cluster of branch bi."""
+        nodes = sorted({s for (a, b, _) in group for s in (a, b)})
+        if len(group) > 1:
+            acyclic = len(group) == len(nodes) - 1
+            if acyclic and all(s in self.singletons for s in nodes):
+                return self._lfc_tree_eliminate(group, nodes, loglik, w_list, bi)
+            # cyclic graphs / chains over contaminated samples
+            return self._lfc_group_joint(
+                group, nodes, loglik, pair_logliks, w_list, bi, comp_of_sample
+            )
+        a, b, lm = group[0]
+        za, zb = self.zero_s[a], self.zero_s[b]
+        if a in self.singletons and b in self.singletons:
+            da = loglik[a] + w_list[a][:, bi][:, None, :]  # [L,B,Ga]
+            db = loglik[b] + w_list[b][:, bi][:, None, :]
+            joint_ab = da[:, :, :, None] + db[:, :, None, :] + lm[None, None]
+            z00 = da[:, :, za] + db[:, :, zb] + lm[za, zb]
+            return _lse(joint_ab, dim=(-2, -1)), z00
+        # both contaminated by the same root parent (star component, e.g.
+        # tumor and relapse both contaminated by normal): lse over
+        # (ga, gb, gp) by a loop over the parent grid, one [L,B,Ga,Gb] slab
+        # per step
+        p = self.parent[a]
+        if (
+            p is None
+            or self.parent[b] != p
+            or self.parent[p] is not None
+            or comp_of_sample[a] != comp_of_sample[b]
+        ):
+            # any other shape (l2fc against one's own contaminant, deeper
+            # chains, ...): generic joint enumeration
+            return self._lfc_group_joint(
+                group, nodes, loglik, pair_logliks, w_list, bi, comp_of_sample
+            )
+        zp = self.zero_s[p]
+        fa = pair_logliks[a] + w_list[a][:, bi][:, None, :, None]  # [L,B,Ga,Gp]
+        fb = pair_logliks[b] + w_list[b][:, bi][:, None, :, None]
+        rp = loglik[p] + w_list[p][:, bi][:, None, :]  # [L,B,Gp]
+        rp_zero = rp[..., zp]
+        for c in comp_of_sample[a]:
+            if c in (a, b, p):
+                continue
+            fc = pair_logliks[c] + w_list[c][:, bi][:, None, :, None]
+            rp = rp + _lse(fc, dim=-2)
+            rp_zero = rp_zero + fc[..., self.zero_s[c], zp]
+        L, B = rp.shape[0], rp.shape[1]
+        total = torch.full((L, B), NEG_INF, device=rp.device)
+        for g in range(rp.shape[-1]):
+            self.loop_steps += 1
+            slab = (
+                fa[..., g][:, :, :, None] + fb[..., g][:, :, None, :]
+                + lm[None, None]
+            )
+            total = torch.logaddexp(total, _lse(slab, dim=(-2, -1)) + rp[..., g])
+        z00 = fa[..., za, zp] + fb[..., zb, zp] + lm[za, zb] + rp_zero
+        return total, z00
+
+    def _full_prior_T(self, P, loglik, pair_logliks, w_list, B):
+        """[L,B,NB] branch values under the joint prior ``P`` ([L] + the
+        per-sample active subgrid sizes; --full-prior), with the l2fc masks
+        folded in (prior.rs:298-438 with is_absent_only = false)."""
+        import itertools
+
+        S = self.n_samples
+        lfc_by_pair = self._lfc_by_pair_t
+        if S == 1:
+            d0 = loglik[0][:, :, None, :] + w_list[0][:, None]  # [L,B,NB,G0]
+            return _lse(d0 + P[:, None, None, :], dim=-1)
+        if S == 2 and self.pairs:
+            si, by, _ = self.pairs[0]
+            pl = pair_logliks[si]  # [L,B,Gc,Gp]
+            wp = w_list[si][:, None, :, :, None]  # [L,1,NB,Gc,1]
+            wc = w_list[by][:, None, :, None, :]  # [L,1,NB,1,Gp]
+            if self.parent[by] is not None:
+                # mutual contamination (2-cycle): both samples carry a
+                # two-axis pair likelihood; neither has an own-axis term
+                pl = pl + torch.swapaxes(pair_logliks[by], -1, -2)
+                joint = pl[:, :, None] + wp + wc
+            else:
+                joint = pl[:, :, None] + wp + wc + loglik[by][:, :, None, None, :]
+            Po = P if si < by else torch.swapaxes(P, -1, -2)
+            joint = joint + Po[:, None, None]
+            # joint axes are (si, by); masks are stored as (0, 1)
+            for (a, b), M in lfc_by_pair.items():
+                Mo = M if (a, b) == (si, by) else torch.swapaxes(M, -1, -2)
+                joint = joint + Mo[None, None]
+            return _lse(joint, dim=(-2, -1))
+        if S == 2:
+            d0 = loglik[0][:, :, None, :] + w_list[0][:, None]
+            d1 = loglik[1][:, :, None, :] + w_list[1][:, None]
+            joint = d0[..., :, None] + d1[..., None, :] + P[:, None, None]
+            for M in lfc_by_pair.values():  # canonical (0, 1)
+                joint = joint + M[None, None]
+            return _lse(joint, dim=(-2, -1))
+        L = P.shape[0]
+        NB = self.n_branches
+        if S == 3 and not self.pairs:
+            # trio (mendelian): a loop over the first sample's grid axis,
+            # one [L,B,NB,G1,G2] slab per step
+            d0 = loglik[0][:, :, None, :] + w_list[0][:, None]
+            d1 = loglik[1][:, :, None, :] + w_list[1][:, None]
+            d2 = loglik[2][:, :, None, :] + w_list[2][:, None]
+            base = d1[..., :, None] + d2[..., None, :]
+            M12 = lfc_by_pair.get((1, 2))
+            if M12 is not None:
+                base = base + M12[None, None]
+            T = torch.full((L, B, NB), NEG_INF, device=P.device)
+            for g0 in range(d0.shape[-1]):
+                self.loop_steps += 1
+                slab = base + P[:, g0][:, None, None]
+                for (a, b), M in lfc_by_pair.items():
+                    if a != 0:
+                        continue
+                    row = M[:, g0]  # [NB, G_b]
+                    slab = slab + (
+                        row[None, None, :, :, None]
+                        if b == 1
+                        else row[None, None, :, None, :]
+                    )
+                T = torch.logaddexp(T, _lse(slab, dim=(-2, -1)) + d0[..., g0])
+            return T
+        # any S and any contamination digraph (cycles included): enumerate
+        # the joint subgrid product with a loop over the flattened leading
+        # S-2 axes, one [L,B,NB,G_{S-2},G_{S-1}] slab per step
+        x_s, y_s = S - 2, S - 1
+        contaminated = {si for si, _by, _f in self.pairs}
+        # single-axis factors: the branch weight per sample, plus the own
+        # likelihood of samples without a contaminant factor
+        singles = []  # (axis, [L,{1|B},NB,Gs])
+        for s in range(S):
+            w = w_list[s][:, None]
+            if s not in contaminated:
+                w = loglik[s][:, :, None, :] + w
+            singles.append((s, w))
+        # two-axis contaminant factors, one per contaminated sample (a
+        # mutual 2-cycle contributes both orientations)
+        pair_fs = [
+            (si, by, pair_logliks[si][:, :, None])  # [L,B,1,Gsi,Gby]
+            for si, by, _f in self.pairs
+        ]
+        T = torch.full((L, B, NB), NEG_INF, device=P.device)
+        lead_sizes = [len(self.values_s[s]) for s in range(S - 2)]
+        for c in itertools.product(*(range(n) for n in lead_sizes)):
+            self.loop_steps += 1
+            slab = P[(slice(None),) + c][:, None, None]  # [L,1,1,Gx,Gy]
+            for s, arr in singles:
+                if s < x_s:
+                    slab = slab + arr[..., c[s]][..., None, None]
+                elif s == x_s:
+                    slab = slab + arr[..., :, None]
+                else:
+                    slab = slab + arr[..., None, :]
+            for si, by, arr in pair_fs:
+                if si < x_s and by < x_s:
+                    slab = slab + arr[..., c[si], c[by]][..., None, None]
+                elif si < x_s:  # by on a tail axis
+                    row = arr[..., c[si], :]  # [L,B,1,Gby]
+                    slab = slab + (
+                        row[..., :, None] if by == x_s else row[..., None, :]
+                    )
+                elif by < x_s:  # si on a tail axis
+                    col = arr[..., c[by]]  # [L,B,1,Gsi]
+                    slab = slab + (
+                        col[..., :, None] if si == x_s else col[..., None, :]
+                    )
+                else:  # both tail axes
+                    slab = slab + (
+                        arr if (si, by) == (x_s, y_s) else torch.swapaxes(arr, -1, -2)
+                    )
+            for (a3, b3), M in lfc_by_pair.items():
+                if (a3, b3) == (x_s, y_s):
+                    slab = slab + M[None, None]
+                elif b3 < x_s:  # both on lead axes
+                    slab = slab + M[:, c[a3], c[b3]][None, None, :, None, None]
+                else:  # a3 on a lead axis, b3 on a tail axis (a3 < b3)
+                    row = M[:, c[a3]]  # [NB, Gb]
+                    slab = slab + (
+                        row[None, None, :, :, None]
+                        if b3 == x_s
+                        else row[None, None, :, None, :]
+                    )
+            T = torch.logaddexp(T, _lse(slab, dim=(-2, -1)))
+        return T
+
     def _unit_terms(self, loglik, pair_logliks, w_list, B):
         """Per-unit branch integrals: U[unit] and Uzero[unit] (the unit's
         value at the all-zero point), each [L,B,NB]."""
@@ -725,15 +1265,6 @@ class PosteriorEngine:
         ln_prior_joint=None,
         n_artifact_active=None,
     ):
-        if ln_prior_joint is not None:
-            raise NotImplementedError(
-                "--full-prior (ln_prior_joint scans) is not ported yet: "
-                "ROADMAP A8"
-            )
-        if self.lfc_branches:
-            raise NotImplementedError(
-                "l2fc constraints (the l2fc joint) are not ported yet: ROADMAP A8"
-            )
         L, S, D, _ = feats.shape
         B = bias_alt.shape[2]
         NB = self.n_branches
@@ -773,6 +1304,19 @@ class PosteriorEngine:
             for si in range(S)
         ]
 
+        if ln_prior_joint is not None:
+            # --full-prior: the prior is evaluated pointwise on the joint
+            # grid instead of the absent-only split
+            T = self._full_prior_T(
+                ln_prior_joint, loglik, pair_logliks, w_list, B
+            )
+            T = torch.where(branch_gates[:, None, :], T, NEG_INF)
+            branch_val = torch.where(combo_active[:, :, None], T, NEG_INF)
+            return self._assemble(
+                branch_val, loglik, pair_logliks, w_list, branch_gates,
+                n_artifact_active,
+            )
+
         U, Uzero = self._unit_terms(loglik, pair_logliks, w_list, B)
 
         dev = feats.device
@@ -781,6 +1325,8 @@ class PosteriorEngine:
         for key, val in U.items():
             T = T + val
             Z = Z + Uzero[key]
+        if self._lfc_t:
+            T, Z = self._lfc_terms(T, Z, U, Uzero, loglik, pair_logliks, w_list)
 
         z0 = self._z0
         T = torch.where(branch_gates[:, None, :], T, NEG_INF)
@@ -1072,7 +1618,9 @@ class PosteriorEngine:
 
         feats [L,S,D,Fe] f32; mask [L,S,D] bool; bias_* [L,S,B,D] f32;
         combo_active [L,B] bool; branch_gates [L,NB] bool; ln_prior_absent
-        [L] f32.  Returns the host dict: joint [L,E], posteriors [L,E],
+        [L] f32; ln_prior_joint [L, G_0, ..., G_{S-1}] f32 optional, the
+        --full-prior joint prior on the per-sample active subgrids.  Returns
+        the host dict: joint [L,E], posteriors [L,E],
         marginal [L], densities_dphred [L,S,G] int16 (32767 sentinel), af
         [L,S], best_nonartifact [L], map_slot [L], n_obs [L,S].
         fetch=False returns a pending handle for :meth:`fetch_run`."""
@@ -1173,11 +1721,6 @@ class PosteriorEngine:
         from ..evidence.observation import HOMOPOLYMER_NONE as _HN
         from .compact_obs import N_CF, N_CU
 
-        if pj_shape is not None:
-            raise NotImplementedError(
-                "--full-prior (ln_prior_joint scans) is not ported yet: "
-                "ROADMAP A8"
-            )
         S = self.n_samples
         Ls, Ds = int(L), int(D)
         spec = self._in_wire_spec(int(Np), Ls, Ds, int(Bc), pj_shape)
@@ -1223,7 +1766,7 @@ class PosteriorEngine:
                 sec["pa"],
                 sec["fr"],
                 sec["hal"] != 0,
-                None,
+                sec.get("pj"),
                 sec["n_art"],
             )
             pending = self._start_fetch(self._device_outputs(out, mask), Ls)

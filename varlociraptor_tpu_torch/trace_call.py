@@ -1,8 +1,9 @@
 """Where the call stage's and preprocess's time goes on one card.
 
-    python -m varlociraptor_tpu_torch.trace_call [--out DIR] [--loci N]
+    python -m varlociraptor_tpu_torch.trace_call [--out DIR] [--loci N] [WHAT ...]
 
-Five measurements, each printed as one JSON line:
+WHAT picks among engine, cli, preprocess and modes (default: all).  Six
+measurements, each printed as one JSON line:
 
   engine   one ``PosteriorEngine.run`` at the bench shape (32768 loci, depth
            64, resolution 0.01) under ``torch.profiler``: device time by
@@ -16,7 +17,11 @@ Five measurements, each printed as one JSON line:
            30x ``synth_preprocess_world`` (500 indel candidates) under
            ``torch.profiler``: the device's busy share, device time by kernel;
   preprocess_host
-           the same run under ``cProfile``: host time by function.
+           the same run under ``cProfile``: host time by function;
+  modes    one ``PosteriorEngine.run`` of the l2fc engine (8192 loci) and of
+           the three-sample contamination cycle (2048 loci), depth 64, under
+           ``torch.profiler`` with shapes: the device's busy share, kernels
+           launched, device time by kernel and by operator and input shape.
 
 The engine's Chrome trace and the full tables go to DIR (default
 build/trace_call/report); the synthetic files and calls to build/trace_call.
@@ -92,6 +97,58 @@ def trace_engine(out_dir):
         "plain_wall_s": plain_s, "device_busy_s": busy,
         "device_busy_share": busy / wall_s, "top_device": _device_table(prof),
     }
+
+
+def _op_shape_table(prof, top=12):
+    """[(operator, input shapes, own device ms, calls)] of the operators
+    that ran on the card, grouped by input shape, largest first."""
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.input_shapes:
+            rows.append({"op": e.key, "shapes": str(e.input_shapes)[:120],
+                         "ms": us / 1e3, "calls": e.count})
+    return sorted(rows, key=lambda r: -r["ms"])[:top]
+
+
+def trace_modes(out_dir):
+    from .bench_utils import cyclic_engine, engine_inputs, l2fc_engine
+
+    lines = []
+    for name, eng, n_loci in (("l2fc", l2fc_engine(), 8192),
+                              ("cyclic", cyclic_engine(), 2048)):
+        inputs = engine_inputs(eng, n_loci=n_loci, depth=64, seed=0)
+        eng.run(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(*inputs)
+        plain_s = time.perf_counter() - t0
+        eng.loop_steps = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            eng.run(*inputs)
+            wall_s = time.perf_counter() - t0
+        (out_dir / f"modes_{name}_table.txt").write_text(
+            prof.key_averages(group_by_input_shape=True).table(
+                sort_by="self_device_time_total", row_limit=60)
+        )
+        busy = _device_busy_s(prof)
+        kernels = [e for e in _device_events(prof) if "Memcpy" not in e.name
+                   and "Memset" not in e.name]
+        lines.append({
+            "phase": "modes", "mode": name, "n_loci": n_loci, "wall_s": wall_s,
+            "plain_wall_s": plain_s, "loop_steps": eng.loop_steps,
+            "device_busy_s": busy, "device_busy_share": busy / wall_s,
+            "kernels_launched": len(kernels),
+            "kernel_mean_us": sum(e.time_range.end - e.time_range.start
+                                  for e in kernels) / max(1, len(kernels)),
+            "top_device": _device_table(prof, 10),
+            "top_op_shapes": _op_shape_table(prof),
+        })
+    return lines
 
 
 def trace_cli(out_dir, work, n_loci):
@@ -176,11 +233,16 @@ def trace_preprocess(out_dir, work):
     ]
 
 
+MEASUREMENTS = ["engine", "cli", "preprocess", "modes"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/trace_call/report")
     ap.add_argument("--loci", type=int, default=20000)
+    ap.add_argument("what", nargs="*", choices=MEASUREMENTS)
     args = ap.parse_args(argv)
+    what = args.what or MEASUREMENTS
     if not torch.cuda.is_available():
         print("trace_call: needs a CUDA device", file=sys.stderr)
         return 2
@@ -193,11 +255,17 @@ def main(argv=None):
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-    print(json.dumps(trace_engine(out_dir)), flush=True)
-    for line in trace_cli(out_dir, work, args.loci):
-        print(json.dumps(line), flush=True)
-    for line in trace_preprocess(out_dir, work):
-        print(json.dumps(line), flush=True)
+    if "engine" in what:
+        print(json.dumps(trace_engine(out_dir)), flush=True)
+    if "cli" in what:
+        for line in trace_cli(out_dir, work, args.loci):
+            print(json.dumps(line), flush=True)
+    if "preprocess" in what:
+        for line in trace_preprocess(out_dir, work):
+            print(json.dumps(line), flush=True)
+    if "modes" in what:
+        for line in trace_modes(out_dir):
+            print(json.dumps(line), flush=True)
     return 0
 
 

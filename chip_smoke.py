@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
-with nvcc (sm_90a, one process per source), then runs eight phases, each
+with nvcc (sm_90a, one process per source), then runs nine phases, each
 printing one JSON line.  It refuses every import of ``jax``, ``jaxlib`` and
-the JAX package ``varlociraptor_tpu``:
+the JAX package ``varlociraptor_tpu``, in its own process by an import hook
+and in every Python process it starts through
+``scripts/torch_no_jax/sitecustomize.py`` on ``PYTHONPATH``:
 
   (a) kernel_vs_plain  K1 against its plain torch version on the card, at the
                        shapes the engine gives it (the bench size and the
@@ -88,10 +90,28 @@ the JAX package ``varlociraptor_tpu``:
                        and compared; and the host seconds of the
                        --full-prior prior tables (tumor-normal, and the
                        mendelian trio at 0.01: 101^3 cells).
+  (g) preprocess_threads
+                       the tumors of phases (d) and (e) again through
+                       ``preprocess variants --threads N --device cuda``:
+                       N = 2, 4 and 8 (each capped by the cores this process
+                       may run on) on phase (d)'s world, N = 4 in
+                       homopolymer mode on phase (e)'s; each worker process
+                       runs the pair-HMM on the card in its own CUDA context.
+                       Per run: wall seconds and loci/s, each worker's
+                       seconds from spawn to its entry (interpreter, imports),
+                       to its device being ready (CUDA context, kernel
+                       library) and to its end, the K2 / K3 / K4 launches and forwards the
+                       workers report, and every record compared with the
+                       serial file; the workers' forwards must equal the
+                       serial run's, K3 (K4) must launch in every worker and
+                       nothing in the parent.  Also the core counts, the
+                       card's compute mode and the seconds a bare
+                       interpreter takes to import torch.
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
-launches counted in phases (c) and (f) (``launches_by_phase``), K2 and K3 with those counted in phase (d)'s
-preprocess steps, K4 with those of phase (e)'s; each with its time, its
+launches counted in phases (c) and (f), K2-K4 with those counted in phase
+(d)'s preprocess steps, phase (e)'s and phase (g)'s workers (each also by
+phase, ``launches_by_phase``); each with its time, its
 plain version's, and its bound (operations over the float32 peak or bytes
 over the memory rate, whichever is larger, on that kernel's timed inputs;
 K2-K4 at 16384 x 256 x 150, and each also at its main-path shape,
@@ -151,8 +171,10 @@ GAP_ONT = (-5.278515, -5.472671, -1.049822, -0.867501)
 # homopolymer hop rates of phase (a''): ln 0.05 for every base, open == extend
 # as the estimator gives them
 HOP_LN = -2.995732273553991
-# top-level packages the port must never import
+# top-level packages the port must never import, and the directory whose
+# sitecustomize.py blocks them in the processes this script starts
 REFUSED = ("jax", "jaxlib", "varlociraptor_tpu")
+NO_JAX_GUARD = "scripts/torch_no_jax"
 # NVIDIA H100 SXM peaks (data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3
 PEAK_F32_OPS = 67e12
@@ -716,19 +738,22 @@ def estimate_props(w, path, secs):
 
 
 def preprocess_samples(w, work, props_path, secs, device, flags=()):
-    """``preprocess variants`` of both samples; returns their files."""
-    obs, rc = {}, 0
+    """``preprocess variants`` of both samples; returns their files and the
+    K2 / K3 / K4 forwards of each sample."""
+    obs, forwards, rc = {}, {}, 0
     for sample in ("tumor", "normal"):
         obs[sample] = str(work / f"{sample}.obs")
+        before = pairhmm_forwards()
         t0 = time.perf_counter()
         rc |= cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w[sample],
                          "--candidates", w["candidates"], "--output", obs[sample],
                          "--sample-name", sample, "--alignment-properties",
                          str(props_path), "--device", device, *flags])
         secs[f"preprocess_{sample}"] = time.perf_counter() - t0
+        forwards[sample] = {k: v - before[k] for k, v in pairhmm_forwards().items()}
     if rc != 0:
         raise PhaseError(f"preprocess: the CLI returned {rc}")
-    return obs
+    return obs, forwards
 
 
 def cpu_recheck(w, work, props_path, obs, secs, n_cpu, mode="exact"):
@@ -819,6 +844,14 @@ def pairhmm_counts():
             "positional": phc.positional_forward.launches}
 
 
+def pairhmm_forwards():
+    """The work items of the K2 / K3 / K4 launches counted so far."""
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    return {"exact": phc.exact_forward.forwards, "general": phc.general_forward.forwards,
+            "positional": phc.positional_forward.forwards}
+
+
 def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
                      n_decoy=500, n_rerun=200, n_cpu=192, device="cuda"):
     import json as _json
@@ -852,7 +885,7 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
                         "kernel": "K2" if not any(finite) else "K3"}
     reset_pairhmm_counts()  # main path
     with timed_pairhmm() as hmm_stats:
-        obs = preprocess_samples(w, work, props_path, secs, device)
+        obs, forwards = preprocess_samples(w, work, props_path, secs, device)
         # 2. the other gap model on the first n_rerun normal candidates
         other = AlignmentProperties.from_json(props.to_json())
         other.gap_params = (GapParams() if any(finite) else GapParams(*GAP_ONT))
@@ -871,6 +904,7 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
     if min(launches["exact"], launches["general"]) == 0 or launches["positional"]:
         raise PhaseError(f"preprocess: K2 and K3 must launch, K4 not: {launches}")
     res["pairhmm_launches"] = launches
+    res["pairhmm_forwards_by_sample"] = forwards
     res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
     pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"]
                   + secs["preprocess_normal_other_model"])
@@ -885,7 +919,13 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
     res["cuda_vs_cpu"] = cpu_recheck(w, work, props_path, obs, secs, n_cpu)
     # 4. call on the card and control the FDR
     call_and_filter(w, work, obs, secs, res, device)
-    return res, launches
+    return res, launches, serial_tumor(w, props_path, obs, forwards, secs)
+
+
+def serial_tumor(w, props_path, obs, forwards, secs):
+    """What phase (g) compares its --threads runs of the tumor with."""
+    return {"world": w, "props": props_path, "obs": obs["tumor"],
+            "forwards": forwards["tumor"], "seconds": secs["preprocess_tumor"]}
 
 
 def phase_homopolymer(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
@@ -923,12 +963,13 @@ def phase_homopolymer(work, genome_len=2_000_000, n_germline=1000, n_somatic=500
     # 2. preprocess both samples on the card in homopolymer mode
     reset_pairhmm_counts()  # main path
     with timed_pairhmm() as hmm_stats:
-        obs = preprocess_samples(w, work, props_path, secs, device,
-                                 flags=("--pairhmm-mode", "homopolymer"))
+        obs, forwards = preprocess_samples(w, work, props_path, secs, device,
+                                           flags=("--pairhmm-mode", "homopolymer"))
     launches = pairhmm_counts()
     if launches["positional"] == 0 or launches["exact"] or launches["general"]:
         raise PhaseError(f"homopolymer: K4 must launch, K2 and K3 not: {launches}")
     res["pairhmm_launches"] = launches
+    res["pairhmm_forwards_by_sample"] = forwards
     res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
     pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"])
     res["k4_shapes"] = hmm_stats["shapes"]["vlt_pairhmm_positional"]
@@ -940,7 +981,7 @@ def phase_homopolymer(work, genome_len=2_000_000, n_germline=1000, n_somatic=500
                                      mode="homopolymer")
     # 4. call on the card and control the FDR
     call_and_filter(w, work, obs, secs, res, device)
-    return res, launches
+    return res, launches, serial_tumor(w, props_path, obs, forwards, secs)
 
 
 # phase (f): loci per engine call of each mode, the plain recheck's head, and
@@ -1133,8 +1174,101 @@ def phase_engine_modes(work):
     return res, launches
 
 
+# phase (g): worker processes of the --threads runs (each capped by the cores
+# this process may run on), and of the one homopolymer run
+THREADS = (2, 4, 8)
+THREADS_HOMOPOLYMER = 4
+PAIRHMM_KINDS = ("exact", "general", "positional")
+
+
+def threads_run(serial, work, n_threads, kernel, flags=()):
+    """``preprocess variants --threads n_threads --device cuda`` of the tumor
+    against the serial run of phase (d) or (e): every record equal within
+    the tolerance of ``compare_observation_files``, the workers' forwards
+    summed equal to the serial run's, ``kernel`` launched in every worker
+    and nothing launched in the parent."""
+    from varlociraptor_tpu_torch.calling import preprocess as pp
+    from varlociraptor_tpu_torch.compare import compare_observation_files
+
+    w = serial["world"]
+    out = work / f"tumor.threads{n_threads}.obs"
+    reports = []
+    pp.worker_hook = reports.extend
+    reset_pairhmm_counts()  # main path: the parent's counts must stay 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w["tumor"],
+                        "--candidates", w["candidates"], "--output", str(out),
+                        "--sample-name", "tumor", "--alignment-properties",
+                        str(serial["props"]), "--threads", str(n_threads),
+                        "--device", "cuda", *flags])
+    finally:
+        pp.worker_hook = None
+    wall = time.perf_counter() - t0
+    parent = pairhmm_counts()
+    launches = {k: sum(r["launches"][k] for r in reports) for k in PAIRHMM_KINDS}
+    forwards = {k: sum(r["forwards"][k] for r in reports) for k in PAIRHMM_KINDS}
+    problems, info = compare_observation_files(serial["obs"], out)
+    res = {"threads": n_threads, "mode": flags[-1] if flags else "exact", "seconds": wall,
+           "loci_per_s": w["n_candidates"] / wall,
+           "serial_loci_per_s": w["n_candidates"] / serial["seconds"],
+           "workers": len(reports), "shards": [r["shard"] for r in reports],
+           "worker_entered_s": [r["entered_s"] for r in reports],
+           "worker_ready_s": [r["ready_s"] for r in reports],
+           "worker_end_s": [r["end_s"] for r in reports],
+           "worker_devices": sorted({r["device"] for r in reports}),
+           "pairhmm_launches": launches, "pairhmm_forwards": forwards,
+           "serial_forwards": serial["forwards"], "vs_serial": info}
+    if rc != 0 or len(reports) != n_threads or any(parent.values()):
+        raise PhaseError(f"threads {n_threads}: rc {rc}, {len(reports)} workers, "
+                         f"parent launches {parent}")
+    if problems or info["records"] != w["n_candidates"]:
+        raise PhaseError(f"threads {n_threads} vs serial: " + "; ".join(problems[:3]))
+    if forwards != serial["forwards"]:
+        raise PhaseError(f"threads {n_threads}: forwards {forwards}, serial "
+                         f"{serial['forwards']}")
+    if any(r["launches"][kernel] == 0 or not r["device"].startswith("cuda")
+           for r in reports):
+        raise PhaseError(f"threads {n_threads}: {kernel} did not launch on the card "
+                         f"in every worker: {reports}")
+    return res
+
+
+def phase_preprocess_threads(work, serial, serial_hp):
+    """(g): the tumors of phases (d) and (e) again with --threads."""
+    import os
+
+    cores = len(os.sched_getaffinity(0))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    # what a worker's start costs before the port runs: a bare interpreter
+    # that imports torch
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch"], check=True)
+    res = {"phase": "preprocess_threads", "cpu_count": os.cpu_count(),
+           "affinity_cores": cores, "card": smi,
+           "import_torch_s": time.perf_counter() - t0, "runs": []}
+    for n_threads in sorted({min(n, cores) for n in THREADS}):
+        res["runs"].append(threads_run(serial, work, n_threads, "general"))
+    res["runs"].append(threads_run(serial_hp, work / "homopolymer",
+                                   min(THREADS_HOMOPOLYMER, cores), "positional",
+                                   ("--pairhmm-mode", "homopolymer")))
+    launches = {k: sum(run["pairhmm_launches"][k] for run in res["runs"])
+                for k in PAIRHMM_KINDS}
+    res["pairhmm_launches"] = launches
+    return res, launches
+
+
 def main():
+    import os
+
     sys.meta_path.insert(0, refuse_jax)
+    # the same block in every Python process this one starts (phase (g)'s
+    # spawned preprocess workers): an import hook is not inherited
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / NO_JAX_GUARD), os.environ.get("PYTHONPATH")) if p)
     import torch
 
     if not torch.cuda.is_available():
@@ -1176,14 +1310,19 @@ def main():
     emit(phase_engine(engine))
     c, launches = phase_cli(work)
     emit(c)
-    d, hmm_launches = phase_preprocess(work)
+    d, hmm_launches, serial = phase_preprocess(work)
     emit(d)
     (work / "homopolymer").mkdir()
-    e, hp_launches = phase_homopolymer(work / "homopolymer")
+    e, hp_launches, serial_hp = phase_homopolymer(work / "homopolymer")
     emit(e)
     (work / "engine_modes").mkdir()
     f, mode_launches = phase_engine_modes(work / "engine_modes")
     emit(f)
+    g, thread_launches = phase_preprocess_threads(work, serial, serial_hp)
+    emit(g)
+    by_phase = {kind: {"preprocess": hmm_launches[kind], "homopolymer": hp_launches[kind],
+                       "preprocess_threads": thread_launches[kind]}
+                for kind in PAIRHMM_KINDS}
     repo_attempts = []
     for name, stack in refuse_jax.attempts:
         print(f"chip_smoke: refused an import of {name} from:\n{stack}", file=sys.stderr)
@@ -1202,12 +1341,13 @@ def main():
         "max_abs_err": a["max_abs_err"], **timing(bench), "library_ms": None,
     }] + [{
         "name": f"pairhmm_{kind}", "route": "cuda", "source": K23_SOURCE,
-        "replaces": replaces, "launches": hmm_launches[kind],
-        "max_abs_err": a2["max_abs_err"][kind], **timing(hmm_bench[kind]),
+        "replaces": replaces, "launches": sum(by_phase[kind].values()),
+        "launches_by_phase": by_phase[kind], "max_abs_err": a2["max_abs_err"][kind], **timing(hmm_bench[kind]),
         "library_ms": None, **main_shape(hmm_main[kind]),
     } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))] + [{
         "name": "pairhmm_positional", "route": "cuda", "source": K23_SOURCE,
-        "replaces": K4_REPLACES, "launches": hp_launches["positional"],
+        "replaces": K4_REPLACES, "launches": sum(by_phase["positional"].values()),
+        "launches_by_phase": by_phase["positional"],
         "max_abs_err": a3["max_abs_err"], **timing(k4_bench), "library_ms": None,
         **main_shape(k4_main),
     }]})

@@ -2,11 +2,13 @@
 back from CUDA to the CPU.
 
 * a subprocess that blocks ``jax``, ``jaxlib`` and ``varlociraptor_tpu``
-  imports the port and runs
+  (through ``scripts/torch_no_jax/sitecustomize.py`` on its ``PYTHONPATH``,
+  so that the processes it spawns are blocked too) imports the port and runs
   its CLI ``call variants tumor-normal`` and ``filter-calls control-fdr`` on
   tiny synthetic observation files, and ``estimate alignment-properties`` and
-  ``preprocess variants`` (default and ``--pairhmm-mode homopolymer`` with
-  hop params) on a tiny synthetic BAM world, with ``--device cpu``;
+  ``preprocess variants`` (default, ``--pairhmm-mode homopolymer`` with
+  hop params, and ``--threads 2``: two spawned workers) on a tiny synthetic
+  BAM world, with ``--device cpu``;
 * ``--device cuda`` on a machine without a usable card raises, for ``call``
   and for ``preprocess``;
 * no file of the port (nor chip_smoke.py and the port's scripts) imports
@@ -14,6 +16,7 @@ back from CUDA to the CPU.
   modules: the port keeps its own copies of those.
 """
 
+import os
 import re
 import subprocess
 import sys
@@ -34,9 +37,11 @@ PORT = ROOT / "varlociraptor_tpu_torch"
 
 _BLOCKED_RUN = r"""
 import sys
-sys.modules["jax"] = None
-sys.modules["jaxlib"] = None
-sys.modules["varlociraptor_tpu"] = None
+import multiprocessing
+blocked = "__import__('sys').modules['jax'] is __import__('sys').modules['varlociraptor_tpu'] is None"
+assert eval(blocked)
+with multiprocessing.get_context("spawn").Pool(1) as pool:  # as the workers start
+    assert pool.apply(eval, (blocked,))
 sys.path.insert(0, sys.argv[1])
 work = sys.argv[2]
 from varlociraptor_tpu_torch import cli
@@ -74,8 +79,16 @@ assert cli.run(["preprocess", "variants", w["fasta"], "--bam", w["tumor"],
                 "--candidates", w["candidates"], "--output", work + "/t_hp.obs",
                 "--alignment-properties", work + "/props.json",
                 "--pairhmm-mode", "homopolymer", "--device", "cpu"]) == 0
+from varlociraptor_tpu_torch.calling import preprocess as pp
+workers = []
+pp.worker_hook = workers.extend
+assert cli.run(["preprocess", "variants", w["fasta"], "--bam", w["tumor"],
+                "--candidates", w["candidates"], "--output", work + "/t_par.obs",
+                "--threads", "2", "--device", "cpu"]) == 0
 from varlociraptor_tpu_torch.calling.observations import ObservationReader
 print("PREPROCESSED", len(ObservationReader(work + "/t.obs").read_window(100)[0]))
+print("THREADS", len(ObservationReader(work + "/t_par.obs").read_window(100)[0]),
+      "WORKERS", len(workers), sum(r["records"] for r in workers))
 print("HOMOPOLYMER", len(ObservationReader(work + "/t_hp.obs").read_window(100)[0]),
       "K4", bool(k4_calls))
 loaded = sorted(m for m in sys.modules
@@ -88,13 +101,17 @@ print("RECORDS", len(records))
 
 
 def test_cli_runs_with_jax_blocked(tmp_path):
+    guard = str(ROOT / "scripts" / "torch_no_jax")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (guard, os.environ.get("PYTHONPATH")) if p)}
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), str(tmp_path)],
-        capture_output=True, text=True, timeout=300,
+        capture_output=True, text=True, timeout=300, env=env,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RECORDS 40" in proc.stdout
     assert "PREPROCESSED 12" in proc.stdout
+    assert "THREADS 12 WORKERS 2 12" in proc.stdout
     assert "HOMOPOLYMER 12 K4 True" in proc.stdout
     assert (tmp_path / "kept.vcf").exists()
 
@@ -132,7 +149,7 @@ _JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
 _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(import|from)\s+varlociraptor_tpu(\.|\s|$)", re.M)
 _PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + [
     "chip_smoke.py", "scripts/torch_k1_variants.py", "scripts/torch_k3_variants.py",
-    "scripts/torch_e2e_ab.py"]
+    "scripts/torch_e2e_ab.py", "scripts/torch_no_jax/sitecustomize.py"]
 
 
 @pytest.mark.parametrize("path", _PORT_FILES)

@@ -20,6 +20,12 @@ values of the K2 runs and 4 of the K3 runs differ, by up to whole units
 (XLA flushes float32 denormals, torch keeps them; see
 test_torch_pairhmm.py::test_denormals_explain_the_difference_from_xla).
 
+The tumor also goes through both packages with ``--pairhmm-mode fast``,
+``--region`` and ``--report-fragment-ids`` (same tolerance), and through the
+port alone with 16 loci per pair-HMM call against one (identical values),
+as the JAX package's own chunking tests hold it; a two-contig BAM holds
+chunked fragment ids to per-locus ones.
+
 Then the port's CLI runs estimate -> preprocess (tumor, normal) -> call ->
 filter-calls on the same world with ``--device cpu``, in the default and in
 the homopolymer mode.  Last, the world generator: the default world is the
@@ -168,14 +174,111 @@ def test_cli_pipeline_on_cpu(world, tmp_path, capsys, monkeypatch, mode):
     assert kept.exists()
 
 
-@pytest.mark.parametrize("flags,match", [(["--threads", "2"], "A12")])
-def test_cli_refuses_what_is_not_ported(world, tmp_path, flags, match):
-    out = tmp_path / "x.obs"
-    with pytest.raises(NotImplementedError, match=match):
-        cli.run(["preprocess", "variants", world["fasta"], "--bam", world["tumor"],
-                 "--candidates", world["candidates"], "--output", str(out),
-                 "--device", "cpu", *flags])
-    assert not out.exists()
+@pytest.mark.parametrize("option", [
+    {"pairhmm_mode": "fast"},
+    {"region": "chr1:2001-12000"},
+    {"report_fragment_ids": True},
+], ids=["fast", "region", "fragment_ids"])
+def test_preprocess_options_match_jax(world, tmp_path, monkeypatch, option):
+    """The tumor with ``--pairhmm-mode fast`` (the realigner scores the
+    edit-distance path on the host: no pair-HMM kernel), ``--region`` and
+    ``--report-fragment-ids`` (the fragment-id column compared too), each
+    through the JAX package on its kernel path and through the port."""
+    props = _props(world, "estimated")
+    monkeypatch.setenv("VLT_NATIVE_PAIRHMM", "0")
+    monkeypatch.setenv("VLT_PALLAS_PAIRHMM", "1")
+    monkeypatch.setenv("VLT_HOP_STATES", "0")
+    jax_calls = _counting(monkeypatch, jpp, "pallas_exact_forward", interpret=True)
+    port_calls = _counting(monkeypatch, phc, "exact_forward")
+    ref, got = tmp_path / "jax.obs", tmp_path / "torch.obs"
+    n_jax = jax_preprocess(
+        world["candidates"], world["tumor"], world["fasta"], str(ref), sample_name="tumor",
+        alignment_properties=AlignmentProperties.from_json(props),
+        options=JaxOptions(log_mode="silent", **option),
+    )
+    n_port = preprocess(
+        world["candidates"], world["tumor"], world["fasta"], str(got), sample_name="tumor",
+        alignment_properties=alignment_properties_from_jax(AlignmentProperties.from_json(props)),
+        options=PreprocessOptions(log_mode="silent", **option), device="cpu",
+    )
+    problems, info = compare_observation_files(ref, got)
+    assert not problems, problems
+    assert n_jax == n_port == info["records"] > 0 and info["reads"] > 40
+    if "region" in option:
+        assert n_port < world["n_candidates"]
+    else:
+        assert n_port == world["n_candidates"]
+    # fast mode never runs the forward; the others run the column kernel
+    assert bool(jax_calls) == bool(port_calls) == (option.get("pairhmm_mode") != "fast")
+    print(option, info)
+
+
+@pytest.mark.parametrize("model", ["estimated", "ont"])
+def test_chunked_matches_serial(world, tmp_path, model):
+    """Port analog of tests/test_preprocess_parallel.py::test_chunked_matches_serial:
+    the pair-HMM forwards of 16 loci in one call write what one locus per
+    call writes (K2 with the estimate, K3 with ONT-like extensions)."""
+    props = alignment_properties_from_jax(AlignmentProperties.from_json(_props(world, model)))
+    out = {}
+    for chunk in (1, 16):
+        out[chunk] = tmp_path / f"chunk{chunk}.obs"
+        preprocess(world["candidates"], world["tumor"], world["fasta"], str(out[chunk]),
+                   alignment_properties=props, device="cpu",
+                   options=PreprocessOptions(log_mode="silent", device_chunk=chunk))
+    problems, info = compare_observation_files(out[1], out[16])
+    assert not problems, problems
+    assert info["records"] == world["n_candidates"]
+    assert all(v == 0.0 for v in info["max_rel"].values()), info
+
+
+def test_fragment_ids_chunked_across_contigs(tmp_path):
+    """Port analog of tests/test_preprocess_parallel.py::test_fragment_ids_chunked_across_contigs:
+    a chunk that spans a contig boundary is flushed BEFORE the per-contig
+    fragment-id map resets (fragment_id_factory.rs:6-25), so chunked ids
+    equal per-locus ids."""
+    from varlociraptor_tpu_torch.calling.ref_obs import open_observations
+    from varlociraptor_tpu_torch.io.bam import BamRecord, BamWriter
+
+    rng = np.random.default_rng(3)
+    ref_len = 3000
+    seqs = {c: rng.choice(np.frombuffer(b"ACGT", np.uint8), ref_len) for c in ("c1", "c2")}
+    fa = tmp_path / "ref.fa"
+    fa.write_text("".join(f">{c}\n{bytes(s).decode()}\n" for c, s in seqs.items()))
+    bam = tmp_path / "two.bam"
+    w = BamWriter(bam, ["c1", "c2"], [ref_len, ref_len])
+    qn = 0
+    for tid, c in enumerate(("c1", "c2")):
+        for pos in range(800, 1400, 25):
+            qn += 1
+            w.write_record(BamRecord(
+                qname=f"r{qn}", flag=0, tid=tid, pos=pos, mapq=60, cigar=[(0, 100)],
+                mtid=-1, mpos=-1, tlen=0, seq=np.ascontiguousarray(seqs[c][pos:pos + 100]),
+                qual=np.full(100, 30, np.uint8), tags={},
+            ))
+    w.close()
+    cand = tmp_path / "cand.vcf"
+    lines = ["##fileformat=VCFv4.2", "##contig=<ID=c1>", "##contig=<ID=c2>",
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"]
+    for c in ("c1", "c2"):
+        for pos in (1000, 1050, 1100, 1150, 1200):
+            refb = chr(seqs[c][pos - 1])
+            lines.append(f"{c}\t{pos}\t.\t{refb}\t{'A' if refb != 'A' else 'G'}\t.\t.\t.")
+    cand.write_text("\n".join(lines) + "\n")
+
+    def run(chunk):
+        out = tmp_path / f"obs-{chunk}.jsonl"
+        preprocess(cand, bam, fa, out, sample_name="s", device="cpu",
+                   options=PreprocessOptions(log_mode="silent", report_fragment_ids=True,
+                                             device_chunk=chunk, omit_insert_size=True))
+        reader = open_observations(out)
+        ids = [(v.chrom, v.pos, tuple(o.fragment_id for o in p.read_observations))
+               for v, p in reader]
+        reader.close()
+        return ids
+
+    serial = run(1)
+    assert run(4) == serial  # the chunk of 4 spans the c1/c2 boundary
+    assert len(serial) == 10 and any(ids for _c, _p, ids in serial)
 
 
 def _digests(w):

@@ -19,13 +19,15 @@ Differences from the JAX package's preprocess:
   1 (per locus, the reference's sequential semantics) on the CPU;
 * ``pairhmm_mode="homopolymer"`` runs the positional-gap kernel K4 with the
   alignment properties' hop params (K2 / K3 when the estimate found none);
-* host worker processes (``n_workers > 1``) are not ported and raise
-  (ROADMAP A12).
+* each host worker process (``n_workers > 1``) runs its pair-HMM on the
+  caller's device, the card included (one CUDA context per worker), where
+  the JAX package's workers force its native host forward.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace as _dc_replace
+import time
+from dataclasses import dataclass, fields, replace as _dc_replace
 
 from ..calling.variants import VariantInfo, collect_variants
 from ..estimation.alignment_properties import AlignmentProperties
@@ -37,6 +39,15 @@ from ..device import resolve_device
 from ..evidence.extraction import extract_observations
 from ..evidence.variants import Mnv, RefSite, Snv
 from .observations import ObservationWriter
+
+# top-level packages no process of the port may load
+_REFUSED = ("jax", "jaxlib", "varlociraptor_tpu")
+# called, when set, with the worker reports of each parallel preprocess in
+# shard order: the K2 / K3 / K4 launches of the workers happen in other
+# processes, where this process's wrapper counters cannot see them
+worker_hook = None
+# seconds the parent waits for its workers; None waits as long as they run
+worker_timeout_s = None
 
 
 @dataclass
@@ -59,8 +70,16 @@ class PreprocessOptions:
     # "default": progress every 100 records; "each-record": per-record
     # logging (cli.rs:348-357 --log-mode)
     log_mode: str = "default"
-    # host worker processes; only 1 is ported (ROADMAP A12)
+    # host data parallelism: number of worker processes. Equivalent to the
+    # reference ecosystem's per-region CLI sharding: the candidate list is
+    # split at locus/haplotype-group boundaries (:func:`shard_cuts`), each
+    # worker preprocesses its shard, shards are concatenated in order.
+    # Like region sharding, each worker's alignment-property maxima ratchet
+    # (max_del/ins_cigar_len, frac_max_softclip) restarts from the estimate.
     n_workers: int = 1
+    # internal: [lo, hi) slice of the (region-filtered) candidate records
+    # this invocation handles (set by _preprocess_parallel for its workers)
+    record_range: tuple | None = None
     # cross-locus device batching: pair-HMM forwards of this many loci are
     # concatenated into ONE device call (per-call launch and copy latency
     # dominates small per-pileup batches). 1 = execute per locus (the
@@ -153,11 +172,6 @@ def preprocess(
     for the card without one raises."""
     options = options or PreprocessOptions()
     device = resolve_device(device)
-    if options.n_workers > 1:
-        raise NotImplementedError(
-            "preprocess with several host worker processes (--threads > 1) "
-            "is not ported yet: ROADMAP A12"
-        )
     reference = reference or FastaBuffer(
         reference_path, capacity=options.reference_buffer_size
     )
@@ -206,6 +220,28 @@ def preprocess(
         records = [
             r for r in records if r.chrom == chrom and lo <= r.pos < hi
         ]
+    if options.record_range is not None:
+        lo, hi = options.record_range
+        records = records[lo:hi]
+
+    if (
+        options.n_workers > 1
+        and options.record_range is None
+        and not options.report_fragment_ids
+        and not str(output_path).endswith((".bcf", ".vcf"))
+        and len(records) >= 4 * options.n_workers
+    ):
+        return _preprocess_parallel(
+            records,
+            candidates_path,
+            bam_path,
+            reference_path,
+            output_path,
+            sample_name,
+            alignment_properties,
+            options,
+            device,
+        )
 
     last_of_haplotype = {}
     locus_groups: dict[tuple, list] = {}
@@ -464,6 +500,279 @@ def preprocess(
 
         print(f"preprocess: skipped unsupported variants: {skipped}", file=sys.stderr)
     return n
+
+
+def shard_cuts(records, n_workers) -> list[int]:
+    """Cut points [0, c1, ..., n] of the candidate records into at most
+    ``n_workers`` shards of about equal length (targets ``round(k * n / w)``,
+    each moved forward to the next allowed cut).
+
+    Never between records at the same (chrom, pos): they are each other's
+    alt variants during realignment; and never inside a haplotype /
+    breakend group (EVENT / MATEID members must accumulate within one
+    shard; preprocessing/mod.rs:344-462 semantics)."""
+    n_rec = len(records)
+    first_of_hap: dict[str, int] = {}
+    last_of_hap: dict[str, int] = {}
+    for i, rec in enumerate(records):
+        for info in collect_variants(rec):
+            if info.haplotype is not None:
+                first_of_hap.setdefault(info.haplotype, i)
+                last_of_hap[info.haplotype] = i
+    blocked = [False] * (n_rec + 1)  # True: cannot cut between i-1 and i
+    for hap, fi in first_of_hap.items():
+        for i in range(fi + 1, last_of_hap[hap] + 1):
+            blocked[i] = True
+    for i in range(1, n_rec):
+        if (
+            records[i].chrom == records[i - 1].chrom
+            and records[i].pos == records[i - 1].pos
+        ):
+            blocked[i] = True
+
+    w = min(n_workers, n_rec)
+    cuts = [0]
+    for t in (round(k * n_rec / w) for k in range(1, w)):
+        i = t
+        while i < n_rec and blocked[i]:
+            i += 1
+        if cuts[-1] < i < n_rec:
+            cuts.append(i)
+    cuts.append(n_rec)
+    return cuts
+
+
+def _parallel_worker(job):
+    """Worker: preprocess one [lo, hi) shard of the candidate list into a
+    temporary observation file, in a spawned process, with the pair-HMM on
+    the device the caller named (the card unless the caller asked for the
+    CPU; asking for the card without one raises).  Returns its report: the
+    records written, the K2 / K3 / K4 launches and forwards counted in this
+    process, and the seconds from the parent's spawn to this function's
+    entry (interpreter start, imports), to this worker's device being ready
+    (CUDA context, kernel library) and to its end."""
+    (
+        lo,
+        hi,
+        candidates_path,
+        bam_path,
+        reference_path,
+        tmp_path,
+        sample_name,
+        props_json,
+        opts_dict,
+        device,
+        spawned_at,
+    ) = job
+    entered = time.time()
+    import os
+    import sys
+
+    # each worker is one of n_workers processes on the same cores: keep the
+    # native host code and torch's intra-op pool single-threaded
+    os.environ.setdefault("VLT_NATIVE_THREADS", "1")
+    import torch
+
+    torch.set_num_threads(1)
+    loaded = sorted(
+        m
+        for m, mod in list(sys.modules.items())
+        if mod is not None and m.split(".")[0] in _REFUSED
+    )
+    if loaded:
+        raise RuntimeError(f"a preprocess worker of the port has loaded {loaded}")
+    from ..ops import pairhmm_column as phc
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        from .._build import load
+
+        load()
+        torch.empty(1, device=device)  # creates this process's CUDA context
+    ready = time.time()
+    opts = PreprocessOptions(**opts_dict)
+    opts.n_workers = 1
+    opts.record_range = (lo, hi)
+    opts.log_mode = "silent"
+    n = preprocess(
+        candidates_path,
+        bam_path,
+        reference_path,
+        tmp_path,
+        sample_name=sample_name,
+        alignment_properties=AlignmentProperties.from_json(props_json),
+        options=opts,
+        device=device,
+    )
+    kernels = {
+        "exact": phc.exact_forward,
+        "general": phc.general_forward,
+        "positional": phc.positional_forward,
+    }
+    return {
+        "shard": [lo, hi],
+        "records": n,
+        "pid": os.getpid(),
+        "device": str(device),
+        "launches": {k: fn.launches for k, fn in kernels.items()},
+        "forwards": {k: fn.forwards for k, fn in kernels.items()},
+        "entered_s": entered - spawned_at,
+        "ready_s": ready - spawned_at,
+        "end_s": time.time() - spawned_at,
+    }
+
+
+def _worker_main(job, conn):
+    """Body of a worker process: sends (True, report) or (False, the
+    traceback) to the parent."""
+    try:
+        result = (True, _parallel_worker(job))
+    except Exception:  # noqa: BLE001 - the process boundary: the parent raises it
+        import traceback
+
+        result = (False, traceback.format_exc())
+    conn.send(result)
+    conn.close()
+
+
+def _run_workers(jobs, timeout=None):
+    """Run :func:`_parallel_worker` on each job in a spawned process of its
+    own (forking a process that holds a CUDA context is unsafe); return the
+    reports in job order.  A worker that raises, dies or still runs after
+    ``timeout`` seconds fails the run, and the other workers are stopped."""
+    import multiprocessing as mp
+    from multiprocessing.connection import wait
+
+    ctx = mp.get_context("spawn")
+    procs, conns = [], []
+    try:
+        for job in jobs:
+            recv, send = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=_worker_main, args=(job, send), daemon=True)
+            proc.start()
+            send.close()  # a worker that dies leaves its pipe at EOF
+            procs.append(proc)
+            conns.append(recv)
+        reports = [None] * len(jobs)
+        pending = set(range(len(jobs)))
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while pending:
+            left = None if deadline is None else max(0.0, deadline - time.monotonic())
+            if not wait([conns[k] for k in pending], left):
+                raise TimeoutError(
+                    f"preprocess workers {sorted(pending)} still run after {timeout} s"
+                )
+            for k in sorted(pending):
+                if not conns[k].poll():
+                    continue
+                try:
+                    ok, value = conns[k].recv()
+                except EOFError:
+                    procs[k].join(5)
+                    ok, value = False, f"exited with code {procs[k].exitcode}"
+                if not ok:
+                    lo, hi = jobs[k][:2]
+                    raise RuntimeError(
+                        f"preprocess worker {k} (records {lo}-{hi}) failed: {value}"
+                    )
+                reports[k] = value
+                pending.discard(k)
+        return reports
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+        for conn in conns:
+            conn.close()
+
+
+def _preprocess_parallel(
+    records,
+    candidates_path,
+    bam_path,
+    reference_path,
+    output_path,
+    sample_name,
+    props,
+    options,
+    device,
+):
+    """Preprocess the shards of :func:`shard_cuts` in worker processes, each
+    with its pair-HMM on ``device``, and concatenate their observation files
+    in order under one header."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from ..io import native
+    from .observations import CHUNK_RECORDS, ObservationReader
+
+    cuts = shard_cuts(records, options.n_workers)
+    # build here what the workers would otherwise race to build: the native
+    # host library (rebuilt in place) and the card's kernel library
+    native.available()
+    if device.type == "cuda":
+        from .._build import load
+
+        load()
+    opts_dict = {f.name: getattr(options, f.name) for f in fields(options)}
+    tmpdir = tempfile.mkdtemp(prefix="vlt-preproc-")
+    try:
+        spawned_at = time.time()
+        jobs = [
+            (
+                lo,
+                hi,
+                str(candidates_path),
+                str(bam_path),
+                str(reference_path),
+                str(Path(tmpdir) / f"shard{k:03d}.jsonl"),
+                sample_name,
+                props.to_json(),
+                opts_dict,
+                str(device),
+                spawned_at,
+            )
+            for k, (lo, hi) in enumerate(zip(cuts, cuts[1:]))
+        ]
+        reports = _run_workers(jobs, worker_timeout_s)
+
+        # concatenate shards in order under one header
+        with ObservationWriter(
+            output_path,
+            sample_name=sample_name,
+            options={
+                "max_depth": options.max_depth,
+                "indel_window": options.indel_window,
+                "pairhmm_mode": options.pairhmm_mode,
+                "alignment_properties": props.to_json(),
+                "reference": str(reference_path),
+                "bam": str(bam_path),
+                "candidates": str(candidates_path),
+                "n_workers": options.n_workers,
+            },
+        ) as writer:
+            for job in jobs:
+                if writer._binary:
+                    # columnar chunk relay — no per-read objects
+                    rd = ObservationReader(job[5])
+                    while True:
+                        w = rd.read_window(CHUNK_RECORDS)
+                        if w is None:
+                            break
+                        writer.write_window(*w)
+                    rd.close()
+                else:
+                    with open(job[5]) as f:
+                        next(f, None)  # shard header
+                        for line in f:
+                            writer._fh.write(line)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    if worker_hook is not None:
+        worker_hook(reports)
+    return sum(r["records"] for r in reports)
 
 
 def _process_haplotype_block(

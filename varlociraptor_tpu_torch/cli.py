@@ -4,7 +4,7 @@
         --bam BAM [--num-records N] > PROPS.json
     python -m varlociraptor_tpu_torch preprocess variants REF --bam BAM \
         --candidates VCF --output OBS [--alignment-properties PROPS.json] \
-        [--device cuda|cpu]
+        [--threads N] [--device cuda|cpu]
     python -m varlociraptor_tpu_torch call variants generic --scenario YAML \
         --obs S=OBS ... --output VCF [--device cuda|cpu]
     python -m varlociraptor_tpu_torch call variants tumor-normal --tumor OBS \
@@ -16,8 +16,8 @@ The flags follow ``varlociraptor_tpu/cli.py`` for these commands.  The
 device of the pair-HMM (preprocess) and of the posterior engine (call)
 defaults to ``cuda``; asking for it without a card is an error, never a
 silent fall back to the CPU.  ``preprocess --pairhmm-mode homopolymer``
-runs the positional-gap kernel K4; ``preprocess --threads > 1`` is not
-ported and raises (ROADMAP A12).
+runs the positional-gap kernel K4; ``preprocess --threads N`` runs N worker
+processes, each with its pair-HMM on the same device.
 """
 
 from __future__ import annotations
@@ -64,7 +64,9 @@ def build_parser():
     pv.add_argument("--pairhmm-mode", default="exact", choices=["exact", "fast", "homopolymer"])
     pv.add_argument("--omit-insert-size", action="store_true")
     pv.add_argument("--threads", type=int, default=1,
-                    help="host worker processes; only 1 is ported (ROADMAP A12)")
+                    help="host worker processes, each running its pair-HMM on "
+                         "--device (the candidates are cut into N shards at "
+                         "locus- and haplotype-safe points)")
     pv.add_argument("--report-fragment-ids", action="store_true")
     pv.add_argument("--region", default=None,
                     help="restrict to CHROM or CHROM:START-END (region sharding)")

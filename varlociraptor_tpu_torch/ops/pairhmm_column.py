@@ -487,7 +487,7 @@ def exact_forward(allele, read, qual, alen, rlen, coef, tile=None):
     """K2: [B] f32 log forward probabilities, zero-extension model.  CPU
     tensors: the plain version.  CUDA tensors: the kernel at ``tile``
     (lanes, rows), by default :func:`exact_tile` of the panel width
-    (counted in ``exact_forward.launches``)."""
+    (counted in ``exact_forward.launches``, its items in ``.forwards``)."""
     _check("exact_forward", allele, read, qual, alen, rlen, coef, 4)
     tile = _tile_for("exact_forward", allele.shape[1], tile, exact_tile)
     if allele.device.type == "cpu":
@@ -496,17 +496,19 @@ def exact_forward(allele, read, qual, alen, rlen, coef, tile=None):
         raise ValueError(f"exact_forward: unsupported device {allele.device}")
     out = _launch("vlt_pairhmm_exact", allele, read, qual, alen, rlen, coef, tile=tile)
     exact_forward.launches += 1
+    exact_forward.forwards += allele.shape[0]
     return out
 
 
 exact_forward.launches = 0
+exact_forward.forwards = 0  # work items of those launches
 
 
 def general_forward(allele, read, qual, alen, rlen, coef, tile=None):
     """K3: [B] f32 log forward probabilities, constant finite extensions.
     CPU tensors: the plain version.  CUDA tensors: the kernel at ``tile``
     (lanes, rows), by default :func:`general_tile` of the panel width
-    (counted in ``general_forward.launches``)."""
+    (counted in ``general_forward.launches``, its items in ``.forwards``)."""
     _check("general_forward", allele, read, qual, alen, rlen, coef, 7)
     tile = _tile_for("general_forward", allele.shape[1], tile, general_tile)
     if allele.device.type == "cpu":
@@ -515,10 +517,12 @@ def general_forward(allele, read, qual, alen, rlen, coef, tile=None):
         raise ValueError(f"general_forward: unsupported device {allele.device}")
     out = _launch("vlt_pairhmm_general", allele, read, qual, alen, rlen, coef, tile=tile)
     general_forward.launches += 1
+    general_forward.forwards += allele.shape[0]
     return out
 
 
 general_forward.launches = 0
+general_forward.forwards = 0  # work items of those launches
 
 
 def positional_forward(allele, read, qual, alen, rlen, io, ie, do, de, tile=None):
@@ -526,7 +530,7 @@ def positional_forward(allele, read, qual, alen, rlen, io, ie, do, de, tile=None
     LINEAR panels of :func:`positional_gaps`).  CPU tensors: the plain
     version.  CUDA tensors: the kernel at ``tile`` (lanes, rows), by default
     :func:`positional_tile` of the panel width (counted in
-    ``positional_forward.launches``)."""
+    ``positional_forward.launches``, its items in ``.forwards``)."""
     gaps = (io, ie, do, de)
     _check("positional_forward", allele, read, qual, alen, rlen, gaps=gaps)
     tile = _tile_for("positional_forward", allele.shape[1], tile, positional_tile)
@@ -536,10 +540,12 @@ def positional_forward(allele, read, qual, alen, rlen, io, ie, do, de, tile=None
         raise ValueError(f"positional_forward: unsupported device {allele.device}")
     out = _launch("vlt_pairhmm_positional", allele, read, qual, alen, rlen, *gaps, tile=tile)
     positional_forward.launches += 1
+    positional_forward.forwards += allele.shape[0]
     return out
 
 
 positional_forward.launches = 0
+positional_forward.forwards = 0  # work items of those launches
 
 
 def to_device(args, device):

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
-with nvcc (sm_90a, one process per source), then runs nine phases, each
+with nvcc (sm_90a, one process per source), then runs ten phases, each
 printing one JSON line.  It refuses every import of ``jax``, ``jaxlib`` and
 the JAX package ``varlociraptor_tpu``, in its own process by an import hook
 and in every Python process it starts through
@@ -107,9 +107,31 @@ and in every Python process it starts through
                        nothing in the parent.  Also the core counts, the
                        card's compute mode and the seconds a bare
                        interpreter takes to import torch.
+  (h) legacy_and_estimates
+                       (h1) ``call variants tumor-normal --device cuda``
+                       under ``VLT_LEGACY_CALL=1`` (the legacy per-WorkItem
+                       caller, ``PosteriorEngine.run``) on the first
+                       LEGACY_LOCI loci of phase (c)'s files: loci/s, K1's
+                       launches (two per 64-locus call_batch) and shapes,
+                       K1 held to its plain version at its first launches'
+                       own inputs (timed, with their bound), the first
+                       LEGACY_CPU loci re-called with ``--device cpu`` and
+                       compared; (h2) phase (d)'s observation files
+                       re-encoded into the reference's v15 .bcf and called
+                       on the columnar and on the legacy path (the head of
+                       each .bcf re-called on the CPU and compared), then
+                       ``filter-calls control-fdr``; (h3) ``estimate
+                       contamination --device cuda`` on dedicated synthetic
+                       files (the loci that pass the candidate filter are
+                       printed; at least 500), its TSV against a ``--device
+                       cpu`` run; (h4) ``call cnvs --device cuda`` on phase
+                       (d)'s calls (with the depth channel of its
+                       observation files) and on phase (c)'s calls, each
+                       VCF byte-identical to the ``--device cpu`` run, with
+                       the Viterbi's seconds and steps.
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
-launches counted in phases (c) and (f), K2-K4 with those counted in phase
+launches counted in phases (c), (f) and (h), K2-K4 with those counted in phase
 (d)'s preprocess steps, phase (e)'s and phase (g)'s workers (each also by
 phase, ``launches_by_phase``); each with its time, its
 plain version's, and its bound (operations over the float32 peak or bytes
@@ -127,6 +149,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -463,10 +486,7 @@ def phase_cli(work, n_loci=100_000, n_cpu=2000, device="cuda"):
                   n2k, "--purity", "0.75", "--device", "cpu", "--output",
                   str(calls_cpu)])
     cpu_s = time.perf_counter() - t0
-    lines = calls_text.splitlines(keepends=True)
-    n_head = sum(1 for ln in lines if ln.startswith("#"))
-    gpu_head = "".join(lines[: n_head + n_cpu])
-    problems, swapped = compare_vcf_text(calls_cpu.read_text(), gpu_head)
+    problems, swapped = compare_vcf_text(calls_cpu.read_text(), vcf_head(calls_text, n_cpu))
     if rc != 0 or problems:
         raise PhaseError("cli cuda vs cpu VCF: " + "; ".join(problems[:3]))
     return {
@@ -707,6 +727,13 @@ def head_of_vcf(src, dst, n):
             kept += 1
         lines.append(line)
     Path(dst).write_text("".join(lines))
+
+
+def vcf_head(text, n):
+    """The header and the first n records of a VCF text."""
+    lines = text.splitlines(keepends=True)
+    n_head = sum(1 for ln in lines if ln.startswith("#"))
+    return "".join(lines[: n_head + n])
 
 
 def cli_quiet(argv, stdout=None):
@@ -1157,9 +1184,8 @@ def phase_engine_modes(work):
                   f"tumor={t2k}", f"normal={n2k}", "--full-prior", "--device", "cpu",
                   "--output", str(calls_cpu)])
     cpu_s = time.perf_counter() - t0
-    lines = calls_text.splitlines(keepends=True)
-    n_head = sum(1 for ln in lines if ln.startswith("#"))
-    problems, swapped = compare_vcf_text(calls_cpu.read_text(), "".join(lines[: n_head + MODES_CLI_CPU]))
+    problems, swapped = compare_vcf_text(calls_cpu.read_text(),
+                                         vcf_head(calls_text, MODES_CLI_CPU))
     if rc != 0 or problems:
         raise PhaseError("engine_modes cli cuda vs cpu VCF: " + "; ".join(problems[:3]))
     windows = -(-MODES_CLI_LOCI // 1024)
@@ -1261,6 +1287,368 @@ def phase_preprocess_threads(work, serial, serial_hp):
     return res, launches
 
 
+# phase (h): the legacy per-WorkItem caller (h1), reference-format
+# observation files (h2), estimate contamination (h3) and call cnvs (h4).
+# h1's loci and its CPU re-call; h2's CPU re-call of the head of each .bcf;
+# h3's dedicated synthetic files (about LEGACY_CONTAM_LOCI * 0.3 loci pass
+# the contamination candidate filter); the K1 launches of h1 held to the
+# plain version at their own shapes
+LEGACY_LOCI = 20000
+LEGACY_CPU = 2000
+BCF_CPU = 512
+LEGACY_CONTAM_LOCI = 2000
+LEGACY_CONTAM_SOMATIC = 0.3
+LEGACY_CONTAM_MIN_PASSED = 500
+LEGACY_K1_CHECKED = 4
+# h3: the card's contamination log densities against the CPU's, per row,
+# in nats.  Each AFD entry is an int16 deci-PHRED density, so float32 and
+# float64 sums can round one entry a step (ln(10) / 100 = 0.023 nats)
+# apart; the measured worst row was 0.031 nats over 610 informative
+# variants (NVIDIA H100 80GB HBM3, 700 W).  The limit is about nine such
+# steps, 6.5 times that reading (the worst case, two steps per variant, is
+# the bound of tests/test_torch_contamination.py at its 24 loci)
+CONTAM_LOG_DENSITY_TOL = 0.2
+# card against CPU calls of phase (d)'s world (h2): its loci carry
+# log-likelihood sums of up to ~1,000 nats (PROB_GERMLINE_HOM reaches
+# 1,164 PHRED = 268 nats of posterior), where one float32 rounding moves a
+# sum by up to 6e-8 * 1,000 = 6e-5 nats; a posterior is a difference of
+# log-sum-exps over such sums, four roundings: 2.4e-4 nats = 1.0e-3 PHRED.
+# So PHRED and AF within 1e-3 * max(1, |x|) (compare_vcf_text's default
+# 1.1e-4 holds the synthetic loci of h1, whose sums are smaller)
+WORLD_VCF_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def legacy_call(on=True):
+    """``VLT_LEGACY_CALL=1`` (the legacy per-WorkItem path) for the calls
+    inside, or unset."""
+    import os
+
+    saved = os.environ.pop("VLT_LEGACY_CALL", None)
+    if on:
+        os.environ["VLT_LEGACY_CALL"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("VLT_LEGACY_CALL", None)
+        if saved is not None:
+            os.environ["VLT_LEGACY_CALL"] = saved
+
+
+@contextlib.contextmanager
+def k1_first_inputs(store, n):
+    """Keep copies of the inputs of K1's first ``n`` launches.  The wrapper
+    still launches them; it counts each under its module name, so the count
+    lives on the stand-in meanwhile and goes back to the wrapper after."""
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+
+    kernel = k1.ll_classes
+
+    def capture(*args):
+        if len(store) < n:
+            store.append(tuple(t.clone() for t in args))
+        return kernel(*args)
+
+    capture.launches = kernel.launches
+    k1.ll_classes = capture
+    try:
+        yield
+    finally:
+        k1.ll_classes = kernel
+        kernel.launches = capture.launches
+
+
+def timed_call(argv):
+    """``call variants ...`` on the card through the CLI: (seconds, K1
+    launches, K1 shapes)."""
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+
+    # looked up on the module, not bound once: inside k1_first_inputs the
+    # count sits on its stand-in
+    k1.ll_classes.launches = 0  # main path starts here
+    with k1_shapes() as shapes:
+        t0 = time.perf_counter()
+        rc = cli_quiet(argv + ["--device", "cuda"])
+        secs = time.perf_counter() - t0
+    if rc != 0:
+        raise PhaseError(f"legacy_and_estimates: {argv[:3]} returned {rc}")
+    return secs, k1.ll_classes.launches, [{"N": N, "U": U, "D": D, "launches": c}
+                                          for (N, U, D), c in sorted(shapes.items())]
+
+
+def info_max_rel(text_a, text_b):
+    """The largest difference of the INFO numbers (PROB_*) of two VCFs of
+    the same records, relative to max(1, |x|)."""
+    import re
+
+    num = re.compile(r"-?\d+\.\d+")
+    worst = 0.0
+    for a, b in zip(text_a.splitlines(), text_b.splitlines()):
+        if a.startswith("#") or a == b:
+            continue
+        for x, y in zip(num.findall(a.split("\t")[7]), num.findall(b.split("\t")[7])):
+            worst = max(worst, abs(float(x) - float(y)) / max(1.0, abs(float(x))))
+    return worst
+
+
+def cuda_vs_cpu_vcf(name, gpu_text, cpu_text, n, rel_tol=None):
+    from varlociraptor_tpu_torch.compare import VCF_REL_TOL, compare_vcf_text
+
+    rel_tol = VCF_REL_TOL if rel_tol is None else rel_tol
+    head = vcf_head(gpu_text, n)
+    problems, swapped = compare_vcf_text(cpu_text, head, rel_tol=rel_tol)
+    if problems:
+        raise PhaseError(f"legacy_and_estimates {name} cuda vs cpu: " + "; ".join(problems[:3]))
+    return {"n_loci": n, "rel_tol": rel_tol, "info_max_rel": info_max_rel(cpu_text, head),
+            "topk_swapped_lines": swapped}
+
+
+def k1_legacy_check(captured):
+    """K1 against its plain version at the legacy path's own launch
+    shapes (the first launches of h1), timed as phase (a) times it."""
+    import numpy as np
+
+    from varlociraptor_tpu_torch.ops.ll_classes import ll_classes, ll_classes_reference
+
+    out = []
+    for args in captured:
+        g = ll_classes(*args).cpu().numpy()
+        r = ll_classes_reference(*args).cpu().numpy()
+        fin = np.isfinite(r)
+        if not np.array_equal(np.isfinite(g), fin):
+            raise PhaseError("K1 legacy shapes: finiteness differs from the plain version")
+        err = np.abs(g[fin] - r[fin])
+        rel = float(np.max(err / np.maximum(1, np.abs(r[fin])))) if fin.any() else 0.0
+        if not rel <= K1_TOL:
+            raise PhaseError(f"K1 legacy shapes: rel err {rel} > {K1_TOL}")
+        N, D = args[0].shape
+        out.append({"N": N, "U": int(args[4].shape[0]), "D": D,
+                    "max_abs_err": float(err.max()) if fin.any() else 0.0,
+                    "max_rel_err": rel,
+                    "ms": cuda_ms(lambda: ll_classes(*args), 20),
+                    "plain_ms": cuda_ms(lambda: ll_classes_reference(*args), 5),
+                    **k1_roofline(args)})
+    return out
+
+
+def phase_legacy_and_estimates(work, cli_files, pp_files, truth):
+    """(h): the legacy caller on the first LEGACY_LOCI loci of phase
+    (c)'s files; phase (d)'s observations re-encoded into the reference's
+    v15 .bcf and called on both paths; ``estimate contamination``;
+    ``call cnvs`` on phase (d)'s and phase (c)'s calls.  Every card output
+    against a ``--device cpu`` run."""
+    import io
+
+    import numpy as np
+
+    from varlociraptor_tpu_torch import cli
+    from varlociraptor_tpu_torch.bench_utils import (
+        reference_observation_file,
+        synth_observation_files,
+    )
+    from varlociraptor_tpu_torch.calling import cnvs
+    from varlociraptor_tpu_torch.calling.call import DEFAULT_BATCH
+    from varlociraptor_tpu_torch.compare import vcf_record_keys
+    from varlociraptor_tpu_torch.estimation import contamination
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+
+    res = {"phase": "legacy_and_estimates"}
+    launches = {}
+
+    # (h1) the legacy caller (VLT_LEGACY_CALL=1) on the CLI's synthetic loci
+    h1 = res["legacy_call"] = {"n_loci": LEGACY_LOCI}
+    sub = work / "legacy_obs"
+    sub.mkdir(parents=True, exist_ok=True)
+    t, n = subset_files([cli_files["tumor"], cli_files["normal"]], sub, LEGACY_LOCI)
+    calls = work / "legacy_calls.vcf"
+    argv = ["call", "variants", "tumor-normal", "--tumor", t, "--normal", n,
+            "--purity", "0.75", "--output", str(calls)]
+    captured = []
+    with legacy_call(), k1_first_inputs(captured, LEGACY_K1_CHECKED):
+        h1["seconds"], launches["legacy_call"], h1["k1_shapes"] = timed_call(argv)
+    text = calls.read_text()
+    batches = -(-LEGACY_LOCI // DEFAULT_BATCH)
+    h1.update(records=len(vcf_record_keys(text)), loci_per_s=LEGACY_LOCI / h1["seconds"],
+              call_batches=batches, k1_launches=launches["legacy_call"],
+              k1_launches_per_call_batch=launches["legacy_call"] / batches)
+    if h1["records"] != LEGACY_LOCI or launches["legacy_call"] != 2 * batches:
+        raise PhaseError(f"legacy_call: {h1['records']} records, K1 launched "
+                         f"{launches['legacy_call']} times in {batches} batches")
+    cpu_sub = work / "legacy_obs_cpu"
+    cpu_sub.mkdir(parents=True, exist_ok=True)
+    tc, nc = subset_files([t, n], cpu_sub, LEGACY_CPU)
+    cpu_calls = work / "legacy_calls_cpu.vcf"
+    with legacy_call():
+        t0 = time.perf_counter()
+        rc = cli_quiet(["call", "variants", "tumor-normal", "--tumor", tc, "--normal", nc,
+                        "--purity", "0.75", "--device", "cpu", "--output", str(cpu_calls)])
+        h1["cpu_call_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise PhaseError(f"legacy_call cpu: rc {rc}")
+    h1["cuda_vs_cpu"] = cuda_vs_cpu_vcf("legacy_call", text, cpu_calls.read_text(), LEGACY_CPU)
+    h1["k1_vs_plain"] = k1_legacy_check(captured)
+
+    # (h2) phase (d)'s observations as the reference's v15 .bcf
+    h2 = res["reference_bcf"] = {}
+    bdir = work / "v15"
+    bdir.mkdir(parents=True, exist_ok=True)
+    bcf, head = {}, {}
+    t0 = time.perf_counter()
+    for s in ("tumor", "normal"):
+        bcf[s] = reference_observation_file(pp_files[s], bdir / f"{s}.obs.bcf")
+        head[s] = reference_observation_file(pp_files[s], bdir / f"{s}.head.obs.bcf", BCF_CPU)
+    h2["encode_s"] = time.perf_counter() - t0
+    n_loci = len(vcf_record_keys(Path(pp_files["calls"]).read_text()))
+    for path_name, legacy in (("columnar", False), ("legacy", True)):
+        rec = h2[path_name] = {"n_loci": n_loci}
+        out = bdir / f"calls_{path_name}.vcf"
+        argv = ["call", "variants", "tumor-normal", "--tumor", bcf["tumor"], "--normal",
+                bcf["normal"], "--purity", "0.75", "--output", str(out)]
+        with legacy_call(legacy):
+            rec["seconds"], launches[f"bcf_{path_name}"], rec["k1_shapes"] = timed_call(argv)
+            cpu_out = bdir / f"calls_{path_name}_cpu.vcf"
+            t0 = time.perf_counter()
+            rc = cli_quiet(["call", "variants", "tumor-normal", "--tumor", head["tumor"],
+                            "--normal", head["normal"], "--purity", "0.75", "--device",
+                            "cpu", "--output", str(cpu_out)])
+            rec["cpu_call_s"] = time.perf_counter() - t0
+        text = out.read_text()
+        rec.update(records=len(vcf_record_keys(text)), loci_per_s=n_loci / rec["seconds"],
+                   k1_launches=launches[f"bcf_{path_name}"])
+        if rc != 0 or rec["records"] != n_loci or rec["k1_launches"] == 0:
+            raise PhaseError(f"reference_bcf {path_name}: cpu rc {rc}, {rec['records']} of "
+                             f"{n_loci} records, K1 launches {rec['k1_launches']}")
+        rec["cuda_vs_cpu"] = cuda_vs_cpu_vcf(f"reference_bcf {path_name}", text,
+                                             cpu_out.read_text(), min(BCF_CPU, n_loci),
+                                             WORLD_VCF_TOL)
+        kept = bdir / f"somatic_{path_name}.fdr.vcf"
+        t0 = time.perf_counter()
+        rc = cli_quiet(["filter-calls", "control-fdr", str(out), "--events", "somatic_tumor",
+                        "--fdr", "0.05", "--output", str(kept)])
+        rec["fdr_s"] = time.perf_counter() - t0
+        kept_pos = np.array([int(k[1]) - 1 for k in vcf_record_keys(kept.read_text())],
+                            np.int64)
+        rec.update(somatic_kept=int(len(kept_pos)),
+                   planted_somatic_recall=float(np.isin(truth["somatic"], kept_pos).mean()),
+                   decoys_kept=int(np.isin(truth["decoy"], kept_pos).sum()))
+        if rc != 0 or len(kept_pos) == 0:
+            raise PhaseError(f"reference_bcf {path_name}: control-fdr rc {rc}, "
+                             f"kept {len(kept_pos)}")
+
+    # (h3) estimate contamination on dedicated synthetic files
+    h3 = res["contamination"] = {"n_loci": LEGACY_CONTAM_LOCI,
+                                  "frac_somatic": LEGACY_CONTAM_SOMATIC}
+    ct, cn, _ = synth_observation_files(work / "contam_obs", n_loci=LEGACY_CONTAM_LOCI, seed=2,
+                                        frac_somatic=LEGACY_CONTAM_SOMATIC)
+    make_filter = contamination._make_candidate_filter
+    passed = []
+
+    def counting_filter(sample_idx, cont_idx):
+        keep = make_filter(sample_idx, cont_idx)
+
+        def f(item):
+            ok = keep(item)
+            passed.append(ok)
+            return ok
+        return f
+
+    tsv = {}
+    contamination._make_candidate_filter = counting_filter
+    try:
+        for dev in ("cuda", "cpu"):
+            passed.clear()
+            out = work / f"contamination_{dev}.tsv"
+            err = io.StringIO()
+            k1.ll_classes.launches = 0  # main path starts here
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.run(["estimate", "contamination", "--sample", ct, "--contaminant",
+                              cn, "--device", dev, "--output", str(out)])
+            secs = time.perf_counter() - t0
+            if dev == "cuda":
+                launches["contamination"] = k1.ll_classes.launches
+                h3.update(seconds=secs, loci_passed=int(sum(passed)),
+                          k1_launches=launches["contamination"],
+                          summary=err.getvalue().strip().splitlines()[-1])
+            else:
+                h3["cpu_seconds"] = secs
+            if rc != 0:
+                raise PhaseError(f"contamination on {dev}: rc {rc}")
+            tsv[dev] = out.read_text().splitlines()
+    finally:
+        contamination._make_candidate_filter = make_filter
+    print(f"legacy_and_estimates: {h3['loci_passed']} loci passed the contamination "
+          "candidate filter", flush=True)
+    n_var = int(h3["summary"].split("(")[-1].split()[0])
+    h3["informative_variants"] = n_var
+    tol = CONTAM_LOG_DENSITY_TOL
+    rows_g = [r.split("\t") for r in tsv["cuda"][1:]]
+    rows_c = [r.split("\t") for r in tsv["cpu"][1:]]
+    dens = {tuple(r[:2]): float(r[2]) for r in rows_c}
+    worst = 0.0
+    for r in rows_g:
+        x, y = dens.get(tuple(r[:2]), -1.0), float(r[2])
+        if (x == 0.0) != (y == 0.0) or x < 0:
+            raise PhaseError(f"contamination cuda vs cpu: row {r} vs {x}")
+        if x > 0:
+            worst = max(worst, abs(math.log(y) - math.log(x)))
+    h3.update(top_row=rows_g[0][:2], max_abs_log_density_diff=worst, tol=tol)
+    if (tsv["cuda"][0] != tsv["cpu"][0] or rows_g[0][:2] != rows_c[0][:2]
+            or len(rows_g) != len(rows_c) or worst > tol
+            or h3["loci_passed"] < LEGACY_CONTAM_MIN_PASSED or launches["contamination"] == 0):
+        raise PhaseError(f"contamination cuda vs cpu: top {rows_g[0]} vs {rows_c[0]}, "
+                         f"log density diff {worst} (tol {tol}), {h3['loci_passed']} loci "
+                         f"passed, K1 launches {launches['contamination']}")
+
+    # (h4) call cnvs on phase (d)'s calls (with the depth channel) and on
+    # phase (c)'s calls
+    h4 = res["cnvs"] = []
+    viterbi = cnvs.viterbi
+    for name, files, extra in (
+        ("preprocess", pp_files, ["--tumor-obs", pp_files["tumor"],
+                                  "--normal-obs", pp_files["normal"]]),
+        ("cli", cli_files, []),
+    ):
+        rec = {"calls": name, "records_in": len(vcf_record_keys(Path(files["calls"]).read_text()))}
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            stats = {"calls": 0, "steps": 0, "seconds": 0.0}
+
+            def timed_viterbi(obs, mbf, device="cuda", stats=stats):
+                t0 = time.perf_counter()
+                path = viterbi(obs, mbf, device)
+                stats["seconds"] += time.perf_counter() - t0
+                stats["calls"] += 1
+                stats["steps"] += obs.shape[0] - 1
+                return path
+
+            out = work / f"cnvs_{name}_{dev}.vcf"
+            cnvs.viterbi = timed_viterbi
+            try:
+                t0 = time.perf_counter()
+                rc = cli_quiet(["call", "cnvs", files["calls"], "--purity", "0.75",
+                                "--device", dev, "--output", str(out), *extra])
+                secs = time.perf_counter() - t0
+            finally:
+                cnvs.viterbi = viterbi
+            if rc != 0:
+                raise PhaseError(f"cnvs {name} on {dev}: rc {rc}")
+            texts[dev] = out.read_text()
+            tag = "" if dev == "cuda" else "cpu_"
+            rec.update({f"{tag}seconds": secs, f"{tag}viterbi_s": stats["seconds"],
+                        f"{tag}viterbi_calls": stats["calls"],
+                        f"{tag}viterbi_steps": stats["steps"]})
+        rec["segments"] = len(vcf_record_keys(texts["cuda"]))
+        rec["viterbi_us_per_step"] = rec["viterbi_s"] / max(rec["viterbi_steps"], 1) * 1e6
+        if texts["cuda"] != texts["cpu"] or rec["viterbi_steps"] == 0:
+            raise PhaseError(f"cnvs {name}: the card's VCF differs from the cpu's "
+                             f"(or no Viterbi step ran: {rec['viterbi_steps']})")
+        h4.append(rec)
+
+    res["k1_launches"] = launches
+    return res, sum(launches.values()), h1["k1_vs_plain"]
+
+
 def main():
     import os
 
@@ -1320,6 +1708,13 @@ def main():
     emit(f)
     g, thread_launches = phase_preprocess_threads(work, serial, serial_hp)
     emit(g)
+    cli_files = {"tumor": str(work / "obs" / "tumor.obs"),
+                 "normal": str(work / "obs" / "normal.obs"), "calls": str(work / "calls.vcf")}
+    pp_files = {"tumor": str(work / "tumor.obs"), "normal": str(work / "normal.obs"),
+                "calls": str(work / "pp_calls.vcf")}
+    h, legacy_launches, k1_legacy = phase_legacy_and_estimates(
+        work, cli_files, pp_files, serial["world"]["truth"])
+    emit(h)
     by_phase = {kind: {"preprocess": hmm_launches[kind], "homopolymer": hp_launches[kind],
                        "preprocess_threads": thread_launches[kind]}
                 for kind in PAIRHMM_KINDS}
@@ -1336,9 +1731,11 @@ def main():
         **{k: case[k] for k in ("B", "Xp", "Yp", "tile")}, **timing(case)}}
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches + mode_launches,
-        "launches_by_phase": {"cli": launches, "engine_modes": mode_launches},
-        "max_abs_err": a["max_abs_err"], **timing(bench), "library_ms": None,
+        "replaces": K1_REPLACES, "launches": launches + mode_launches + legacy_launches,
+        "launches_by_phase": {"cli": launches, "engine_modes": mode_launches,
+                              "legacy_and_estimates": legacy_launches},
+        "max_abs_err": max([a["max_abs_err"]] + [c["max_abs_err"] for c in k1_legacy]),
+        **timing(bench), "library_ms": None,
     }] + [{
         "name": f"pairhmm_{kind}", "route": "cuda", "source": K23_SOURCE,
         "replaces": replaces, "launches": sum(by_phase[kind].values()),

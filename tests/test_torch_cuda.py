@@ -13,7 +13,9 @@ D scan in another association), the same finiteness and -1e30 exactly where
 the plain version gives it; the engine on the card against the engine on
 the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py, in
 tumor-normal and in chip_smoke.py phase (f)'s modes (--full-prior, l2fc,
-cyclic contamination).
+cyclic contamination); the legacy per-WorkItem caller's VCF on the card
+against the CPU's (compare_vcf_text); the CNV Viterbi's state path on the
+card equal to the CPU's.
 """
 
 import math
@@ -167,6 +169,41 @@ def test_engine_modes_on_the_card_match_the_cpu(card, name, k1_per_call):
     ref = cpu.run(*inputs, ln_prior_joint=pj)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
     assert not problems, problems[:5]
+
+
+def test_legacy_call_on_the_card_matches_the_cpu(card, tmp_path, monkeypatch):
+    """The legacy per-WorkItem caller (VLT_LEGACY_CALL=1): K1 launches in
+    every ``call_batch`` (two per engine call, one engine call per 64-locus
+    batch) and the VCF equals the CPU's within compare_vcf_text."""
+    from varlociraptor_tpu_torch.bench_utils import synth_observation_files
+    from varlociraptor_tpu_torch.calling.call import DEFAULT_BATCH, call_generic
+    from varlociraptor_tpu_torch.compare import compare_vcf_text
+    from varlociraptor_tpu_torch.grammar.scenario import tumor_normal_scenario
+
+    n_loci = 150
+    tumor, normal, _ = synth_observation_files(tmp_path, n_loci=n_loci, seed=4)
+    obs = {"tumor": tumor, "normal": normal}
+    monkeypatch.setenv("VLT_LEGACY_CALL", "1")
+    n0 = k1.ll_classes.launches
+    assert call_generic(tumor_normal_scenario(0.75), obs, str(tmp_path / "gpu.vcf"),
+                        device=card) == n_loci
+    assert k1.ll_classes.launches - n0 == 2 * -(-n_loci // DEFAULT_BATCH)
+    call_generic(tumor_normal_scenario(0.75), obs, str(tmp_path / "cpu.vcf"), device="cpu")
+    problems, _ = compare_vcf_text((tmp_path / "cpu.vcf").read_text(),
+                                   (tmp_path / "gpu.vcf").read_text())
+    assert not problems, problems[:5]
+
+
+def test_viterbi_on_the_card_equals_the_cpu(card):
+    from varlociraptor_tpu_torch.calling.cnvs import viterbi
+
+    rng = np.random.default_rng(8)
+    obs = rng.normal(-20.0, 8.0, (500, 221))
+    obs[:, 7] = obs[:, 3]  # equal maxima: the first index wins on both
+    obs[rng.random(obs.shape) < 0.05] = -np.inf
+    for mbf in (1.01, 1e3):
+        assert np.array_equal(viterbi(obs, mbf, device=card),
+                              viterbi(obs, mbf, device="cpu"))
 
 
 def _pairhmm_sets():

@@ -4,13 +4,14 @@ back from CUDA to the CPU.
 * a subprocess that blocks ``jax``, ``jaxlib`` and ``varlociraptor_tpu``
   (through ``scripts/torch_no_jax/sitecustomize.py`` on its ``PYTHONPATH``,
   so that the processes it spawns are blocked too) imports the port and runs
-  its CLI ``call variants tumor-normal`` and ``filter-calls control-fdr`` on
-  tiny synthetic observation files, and ``estimate alignment-properties`` and
+  its CLI ``call variants tumor-normal``, ``filter-calls control-fdr``,
+  ``estimate contamination`` and ``call cnvs`` on tiny synthetic
+  observation files, and ``estimate alignment-properties`` and
   ``preprocess variants`` (default, ``--pairhmm-mode homopolymer`` with
   hop params, and ``--threads 2``: two spawned workers) on a tiny synthetic
   BAM world, with ``--device cpu``;
-* ``--device cuda`` on a machine without a usable card raises, for ``call``
-  and for ``preprocess``;
+* ``--device cuda`` on a machine without a usable card raises, for ``call
+  variants``, ``estimate contamination``, ``call cnvs`` and ``preprocess``;
 * no file of the port (nor chip_smoke.py and the port's scripts) imports
   jax or the JAX package ``varlociraptor_tpu``, not even its jax-free host
   modules: the port keeps its own copies of those.
@@ -55,6 +56,15 @@ assert cli.run(["call", "variants", "tumor-normal", "--tumor", tumor,
 assert cli.run(["filter-calls", "control-fdr", work + "/calls.vcf", "--events",
                 "somatic_tumor", "--fdr", "0.05", "--output",
                 work + "/kept.vcf"]) == 0
+ct, cn, _ = synth_observation_files(work + "/contam", n_loci=60, seed=2,
+                                    frac_somatic=0.5)
+assert cli.run(["estimate", "contamination", "--sample", ct, "--contaminant", cn,
+                "--device", "cpu", "--output", work + "/contamination.tsv"]) == 0
+print("CONTAMINATION", len(open(work + "/contamination.tsv").readlines()))
+assert cli.run(["call", "cnvs", work + "/calls.vcf", "--purity", "0.75",
+                "--tumor-obs", tumor, "--normal-obs", normal, "--device", "cpu",
+                "--output", work + "/cnvs.vcf"]) == 0
+print("CNVS", open(work + "/cnvs.vcf").readline().strip())
 w = synth_preprocess_world(work + "/world", seed=3, genome_len=8000, coverage=4.0,
                            n_germline=4, n_somatic=3, n_decoy=3, n_snv=2)
 import contextlib, io, math
@@ -110,6 +120,8 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RECORDS 40" in proc.stdout
+    assert "CONTAMINATION 405" in proc.stdout  # header + 4 x 101 rows
+    assert "CNVS ##fileformat=VCFv4.2" in proc.stdout
     assert "PREPROCESSED 12" in proc.stdout
     assert "THREADS 12 WORKERS 2 12" in proc.stdout
     assert "HOMOPOLYMER 12 K4 True" in proc.stdout
@@ -126,6 +138,14 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
         cli.run(["call", "variants", "tumor-normal", "--tumor", tumor,
                  "--normal", normal, "--device", "cuda", "--output", str(out)])
     assert not out.exists()
+    for argv in (["estimate", "contamination", "--sample", tumor, "--contaminant",
+                  normal, "--output", str(out)],
+                 ["call", "cnvs", str(tmp_path / "calls.vcf"), "--purity", "1",
+                  "--output", str(out)]):
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.run(argv + ["--device", "cuda"])
+        assert not out.exists()
+        assert cli.build_parser().parse_args(argv).device == "cuda"
     w = synth_preprocess_world(tmp_path / "world", seed=3, genome_len=8000,
                                coverage=4.0, n_germline=4, n_somatic=3, n_decoy=3)
     obs = tmp_path / "t.obs"

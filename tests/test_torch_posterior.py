@@ -6,7 +6,8 @@
 * run() on bench_utils.engine_inputs at two grid resolutions;
 * run_wire() on the same uint8 input buffer, with and without the
   --full-prior ``pj`` section;
-* the call stage's refusals of what is not ported yet.
+* the call stage's plug-in hooks and reference observation files against
+  JAX, and its refusal of the device mesh, which is not ported yet.
 
 Tolerances (varlociraptor_tpu_torch/compare.py): posteriors / marginal /
 joint 1e-4 * max(1, |x|); af 1e-4 (the MAP parabola amplifies one-ulp float32
@@ -212,23 +213,52 @@ def _ref_obs_file(path):
     "mode", ["call_processor", "candidate_filter", "reference_observations", "mesh"]
 )
 def test_modes_outside_the_slice_raise(mode, tmp_path):
-    """What the call stage still refuses: the legacy per-WorkItem caller
-    (plug-in hooks and reference observation files, ROADMAP A8b) and the
-    device mesh (ROADMAP A11)."""
+    """The call stage's plug-in hooks and reference observation files (the
+    legacy per-WorkItem caller and the record-by-record reader) run and agree
+    with JAX on a one-SNV reference observation VCF; only the device mesh is
+    still refused (ROADMAP A11)."""
+    import os
+
+    from varlociraptor_tpu.calling import call as jcall
+    from varlociraptor_tpu.grammar.scenario import Scenario as JScenario
     from varlociraptor_tpu_torch.calling.call import call_generic
+    from varlociraptor_tpu_torch.compare import compare_vcf_text
     from varlociraptor_tpu_torch.grammar.scenario import Scenario
 
-    scenario = Scenario({
+    doc = {
         "samples": {"sample": {"universe": "[0.0,1.0]", "ploidy": 2}},
         "events": {"present": "sample:]0.0,1.0]"},
-    })
-    kw, obs = {"device": "cpu"}, {"sample": str(tmp_path / "missing.obs")}
-    if mode == "reference_observations":
-        obs = {"sample": _ref_obs_file(tmp_path / "sample.obs.vcf")}
-    elif mode == "mesh":
-        kw["mesh"] = object()
-    else:
-        kw[mode] = lambda *a: None
-    roadmap = "ROADMAP A11" if mode == "mesh" else "ROADMAP A8b"
-    with pytest.raises(NotImplementedError, match=roadmap):
-        call_generic(scenario, obs, str(tmp_path / "calls.vcf"), **kw)
+    }
+    obs = {"sample": _ref_obs_file(tmp_path / "sample.obs.vcf")}
+    if mode == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            call_generic(Scenario(doc), obs, str(tmp_path / "calls.vcf"),
+                         device="cpu", mesh=object())
+        return
+    seen = {"jax": [], "torch": []}
+
+    def hooks(side):
+        if mode == "call_processor":
+            return {"call_processor": seen[side].append}
+        if mode == "candidate_filter":
+            return {"candidate_filter": lambda item: seen[side].append(
+                (item.index, item.flags, item.snv)) or True}
+        return {}
+
+    assert "VLT_LEGACY_CALL" not in os.environ
+    ref, got = tmp_path / "jax.vcf", tmp_path / "torch.vcf"
+    assert jcall.call_generic(JScenario(doc), obs, str(ref), **hooks("jax")) == 1
+    assert call_generic(Scenario(doc), obs, str(got), device="cpu", **hooks("torch")) == 1
+    problems, _ = compare_vcf_text(ref.read_text(), got.read_text())
+    assert not problems, problems
+    assert len(seen["torch"]) == len(seen["jax"]) == (0 if mode == "reference_observations" else 1)
+    if mode == "candidate_filter":
+        assert seen["torch"] == seen["jax"] == [(0, seen["jax"][0][1], ("A", "T"))]
+    if mode == "call_processor":
+        a, b = seen["jax"][0], seen["torch"][0]
+        assert b["hints"] == a["hints"]
+        assert b["event_probs"].keys() == a["event_probs"].keys()
+        for k, x in a["event_probs"].items():
+            y = b["event_probs"][k]
+            assert x == y or abs(y - x) <= 1e-4 * max(1.0, abs(x)), (k, x, y)
+        assert abs(b["sample_infos"][0]["af"] - a["sample_infos"][0]["af"]) <= 1e-4

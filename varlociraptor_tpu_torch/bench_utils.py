@@ -865,3 +865,25 @@ def synth_sample_observation_files(out_dir, sample_names, n_loci=200, seed=0,
                                   vafs[:, si], rng, min_depth, max_depth)
         for si, name in enumerate(sample_names)
     }
+
+
+def reference_observation_file(src, dst, n=None):
+    """Re-encode the port's observation file ``src`` (its first ``n``
+    records, or all) into the reference's v15 format at ``dst`` (``.bcf``
+    or ``.vcf``) with ``ReferenceObservationWriter``: the observation files
+    the reference's own ``varlociraptor preprocess`` writes.  The v15
+    encoding is lossy (f16 fields, ``_mini_logprob``), so a call of ``dst``
+    is compared only with another call of ``dst``.  Returns ``str(dst)``."""
+    from .calling.observations import ObservationReader
+    from .calling.ref_obs import ReferenceObservationWriter
+
+    reader = ObservationReader(str(src))
+    try:
+        with ReferenceObservationWriter(str(dst), reader.sample_name) as w:
+            for i, (variant, pileup) in enumerate(reader):
+                if n is not None and i >= n:
+                    break
+                w.write_record(variant, pileup)
+    finally:
+        reader.close()
+    return str(dst)

@@ -213,7 +213,7 @@ class ColumnarCaller(GenericCaller):
 
         groups = []
         counts_full = np.zeros((L, S), dtype=np.int64)
-        batch_cap = max(self.options.effective_batch(), 1)
+        batch_cap = max(self.options.effective_batch(columnar=True), 1)
         Bmax = slot_map.shape[1]
         for depth in np.unique(dbucket):
             depth = int(depth)

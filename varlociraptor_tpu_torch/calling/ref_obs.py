@@ -333,7 +333,7 @@ def open_observations(path, sample_name: str | None = None):
                 from .observations import ObservationReader
 
                 return ObservationReader(path)
-        except OSError:
+        except (OSError, UnicodeDecodeError):  # a BGZF BCF is binary
             pass
     looks_binary = head[:3] == b"BCF" or head[:2] == b"\x1f\x8b"
     if not looks_binary:

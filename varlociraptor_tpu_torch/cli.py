@@ -9,13 +9,19 @@
         --obs S=OBS ... --output VCF [--device cuda|cpu]
     python -m varlociraptor_tpu_torch call variants tumor-normal --tumor OBS \
         --normal OBS [--purity P] --output VCF [--device cuda|cpu]
+    python -m varlociraptor_tpu_torch call cnvs CALLS --purity P \
+        --output VCF [--tumor-obs OBS --normal-obs OBS] [--device cuda|cpu]
     python -m varlociraptor_tpu_torch filter-calls control-fdr CALLS \
         --events E ... --fdr A --output VCF
+    python -m varlociraptor_tpu_torch estimate contamination --sample OBS \
+        --contaminant OBS [--output TSV] [--device cuda|cpu]
 
 The flags follow ``varlociraptor_tpu/cli.py`` for these commands.  The
-device of the pair-HMM (preprocess) and of the posterior engine (call)
-defaults to ``cuda``; asking for it without a card is an error, never a
-silent fall back to the CPU.  ``preprocess --pairhmm-mode homopolymer``
+device of the pair-HMM (preprocess), of the posterior engine (call variants,
+estimate contamination) and of the CNV Viterbi (call cnvs) defaults to
+``cuda``; asking for it without a card is an error, never a silent fall back
+to the CPU.  Observation files are the port's own (``.obs``, ``.jsonl``) or
+the reference's v15 BCF/VCF, which are read record by record.  ``preprocess --pairhmm-mode homopolymer``
 runs the positional-gap kernel K4; ``preprocess --threads N`` runs N worker
 processes, each with its pair-HMM on the same device.
 """
@@ -110,12 +116,23 @@ def build_parser():
     tn.add_argument("--purity", type=float, default=1.0)
     tn.add_argument("--output", required=True)
 
-    for sp in (pv, cg, tn):
-        sp.add_argument(
-            "--device", default="cuda",
-            help="device of the pair-HMM (preprocess) or of the posterior "
-                 "engine (call): cuda (default) or cpu",
-        )
+    # experimental CNV segmentation (the reference ships this disabled,
+    # cli.rs:641-680; same caveat applies)
+    cn = call_sub.add_parser(
+        "cnvs", help="EXPERIMENTAL: HMM CNV segmentation of tumor/normal calls"
+    )
+    cn.add_argument("calls", help="tumor-normal calls VCF/BCF")
+    cn.add_argument("--output", required=True)
+    cn.add_argument("--tumor-sample", default="tumor")
+    cn.add_argument("--normal-sample", default="normal")
+    cn.add_argument("--purity", type=float, required=True)
+    cn.add_argument("--min-bayes-factor", type=float, default=1.01)
+    cn.add_argument("--max-dist", type=int, default=10**9)
+    cn.add_argument("--tumor-obs", default=None,
+                    help="tumor observation file: per-locus depth comes from "
+                         "its depth observations (raw pre-subsampling "
+                         "coverage) instead of the calls' FORMAT DP")
+    cn.add_argument("--normal-obs", default=None)
 
     # ---- filter-calls ----
     fc = sub.add_parser("filter-calls", help="filter calls")
@@ -140,6 +157,24 @@ def build_parser():
     ap.add_argument("--bam", required=True)
     ap.add_argument("--omit-insert-size", action="store_true")
     ap.add_argument("--num-records", type=int, default=None)
+
+    ct = est_sub.add_parser("contamination")
+    ct.add_argument("--sample", required=True)
+    ct.add_argument("--contaminant", required=True)
+    ct.add_argument("--output", default=None)
+    ct.add_argument("--output-plot", default=None)
+    ct.add_argument("--output-max-vaf-variants", default=None)
+    ct.add_argument("--prior-estimate", type=float, default=None)
+    ct.add_argument("--prior-considered-cells", type=int, default=None)
+    ct.add_argument("--resolution", type=int, default=100)
+
+    for sp in (pv, cg, tn, cn, ct):
+        sp.add_argument(
+            "--device", default="cuda",
+            help="device of the pair-HMM (preprocess), of the posterior "
+                 "engine (call variants, estimate contamination) or of the "
+                 "CNV Viterbi (call cnvs): cuda (default) or cpu",
+        )
     return p
 
 
@@ -180,6 +215,9 @@ def run(argv=None):
         print(f"preprocessed {n} candidate records", file=sys.stderr)
         return 0
 
+    if args.command == "estimate" and args.what == "contamination":
+        return _estimate_contamination(args)
+
     if args.command == "estimate":
         from .estimation.alignment_properties import estimate
         from .io.bam import BamReader
@@ -193,6 +231,24 @@ def run(argv=None):
             reference=ref,
         )
         print(props.to_json())
+        return 0
+
+    if args.command == "call" and args.kind == "cnvs":
+        from .calling.cnvs import call_cnvs
+
+        n = call_cnvs(
+            args.calls,
+            args.output,
+            tumor_sample=args.tumor_sample,
+            normal_sample=args.normal_sample,
+            purity=args.purity,
+            min_bayes_factor=args.min_bayes_factor,
+            max_dist=args.max_dist,
+            tumor_obs=args.tumor_obs,
+            normal_obs=args.normal_obs,
+            device=args.device,
+        )
+        print(f"called {n} CNV segments (EXPERIMENTAL)", file=sys.stderr)
         return 0
 
     if args.command == "call":
@@ -240,6 +296,51 @@ def run(argv=None):
         return 0
 
     raise SystemExit(f"unknown command {args.command}")
+
+
+def _estimate_contamination(args):
+    from .estimation.contamination import (
+        estimate_contamination,
+        write_plot,
+        write_tsv,
+    )
+
+    prior = None
+    if (args.prior_estimate is None) != (args.prior_considered_cells is None):
+        print(
+            "--prior-estimate requires --prior-considered-cells "
+            "(and vice versa)",
+            file=sys.stderr,
+        )
+        return 1
+    if args.prior_estimate is not None:
+        prior = (args.prior_estimate, args.prior_considered_cells)
+    result = estimate_contamination(
+        args.sample,
+        args.contaminant,
+        prior_estimate=prior,
+        resolution=args.resolution,
+        device=args.device,
+    )
+    if args.output:
+        with open(args.output, "w") as out:
+            write_tsv(result, out)
+    else:
+        write_tsv(result, sys.stdout)
+    if args.output_plot:
+        write_plot(result, args.output_plot)
+    if args.output_max_vaf_variants:
+        with open(args.output_max_vaf_variants, "w") as f:
+            print("chrom\tpos", file=f)
+            for chrom, pos in result["max_vaf_variants"]:
+                print(f"{chrom}\t{pos}", file=f)
+    print(
+        f"max posterior contamination: "
+        f"{result['max_posterior_contamination']:.4f} "
+        f"({result['n_variants']} informative variants)",
+        file=sys.stderr,
+    )
+    return 0
 
 
 def main():

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
-with nvcc (sm_90a, one process per source), then runs ten phases, each
+with nvcc (sm_90a, one process per source), then runs eleven phases, each
 printing one JSON line.  It refuses every import of ``jax``, ``jaxlib`` and
 the JAX package ``varlociraptor_tpu``, in its own process by an import hook
 and in every Python process it starts through
@@ -129,11 +129,34 @@ and in every Python process it starts through
                        observation files) and on phase (c)'s calls, each
                        VCF byte-identical to the ``--device cpu`` run, with
                        the Viterbi's seconds and steps.
+  (i) kinds_and_testcases
+                       (i1) the all-kinds world (``synth_preprocess_world``
+                       with ``kinds``, ``ratchet`` and ``methylation``:
+                       MNVs, replacements, ``<*>``, inversions and
+                       duplications of 150-2,000 bases, inversions as BND
+                       groups, ``<METH>`` candidates with MM / ML tags, long
+                       tumor indels and clips that move the alignment-
+                       property maxima; KINDS_GENOME bases at 30x) through
+                       ``estimate``, ``preprocess variants --device cuda``
+                       of both samples and the normal's head again with the
+                       other gap model (K2 and K3 both launch); their
+                       launches by panel shape, the first KINDS_CHECKED of
+                       each whose panel is not 128 x 128 against the plain
+                       kernel on their own inputs (K23_TOL above
+                       FORWARD_FLOOR), a ``--device cpu`` re-preprocess of
+                       the head (``kinds_head``: KINDS_CPU loci of each
+                       kind) compared kind by kind, call and FDR; (i2) one
+                       testcase per kind captured with ``call variants
+                       generic --testcase-*`` on the card and replayed with
+                       ``Testcase.run`` on the card and on the CPU (the
+                       VCFs compared; K1 and, for the SV and replacement
+                       kinds, K3 launch in the card's replays).
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
-launches counted in phases (c), (f) and (h), K2-K4 with those counted in phase
-(d)'s preprocess steps, phase (e)'s and phase (g)'s workers (each also by
-phase, ``launches_by_phase``); each with its time, its
+launches counted in phases (c), (f), (h) and (i), K2-K4 with those counted in
+phase (d)'s preprocess steps, phase (e)'s, phase (g)'s workers and phase
+(i)'s preprocess and replays (each also by phase, ``launches_by_phase``; K2
+and K3 take the larger error of phases (a') and (i)); each with its time, its
 plain version's, and its bound (operations over the float32 peak or bytes
 over the memory rate, whichever is larger, on that kernel's timed inputs;
 K2-K4 at 16384 x 256 x 150, and each also at its main-path shape,
@@ -697,6 +720,7 @@ def timed_pairhmm():
             mine = [r for r in launches if r["fn"] == fn]
             stats["shapes"][fn] = shape_record(mine)
             stats["first"][fn] = mine[:RERUN]
+        stats["all"] = launches
 
 
 def warm_rerun(records, path):
@@ -1648,6 +1672,255 @@ def phase_legacy_and_estimates(work, cli_files, pp_files, truth):
     res["k1_launches"] = launches
     return res, sum(launches.values()), h1["k1_vs_plain"]
 
+# phase (i): the all-kinds world.  A 500 kb contig with ~100
+# candidates of each kind would take ~5 minutes (a first run at 250 kb and
+# 50 per kind took 184 s: each testcase capture estimates both full BAMs,
+# 7 x 9.5 s); cut to KINDS_GENOME bases and KINDS_PER_KIND candidates of each
+# kind, to keep the phase near two minutes of command time
+KINDS_GENOME = 150_000
+KINDS_INDELS = {"n_germline": 30, "n_somatic": 15, "n_decoy": 15, "n_snv": 15}
+KINDS_PER_KIND = 30
+KINDS_RATCHET = 10
+KINDS_CPU = 24  # the CPU re-preprocess covers at least this many loci of each kind
+KINDS_CHECKED = 4  # launches of panels other than 128 x 128 held to the plain kernel
+# phase (i)'s kernel-against-plain check at the main path's own launches:
+# K23_TOL for every item whose forward log-likelihood lies above
+# FORWARD_FLOOR nats in either version; below it in both, the item passes.
+# In float32 linear space a path that sits ln(1e-16 / 1.4e-45) = 66 nats
+# below its column's best cell underflows (the rescale keeps that cell
+# above 1e-16, denormals end at 1.4e-45), so a read that aligns nowhere
+# owes its value to whichever far paths the order of roundings (the
+# kernel's FMAs and scans, torch's elementwise ops) let survive.  Measured
+# on the card (NVIDIA H100 80GB HBM3, 700 W): of 86,539 K3 items of the
+# all-kinds world, every one out of K23_TOL lay at or below -101.4 nats
+# (the deepest differed by 19 nats), where the plain float32 version is
+# itself 0.4-7.2 nats off a float64 evaluation of the same recurrence.
+# These reads say nothing for either allele (compare.OBS_FLOOR).
+FORWARD_FLOOR = -100.0
+
+
+def kinds_head(candidates, kinds, n_min):
+    """The smallest head of the candidate file that ends just before a BND
+    group (or at the file's end) and holds ``n_min`` records of every kind
+    (all of a kind that has fewer).  Preprocess flushes its pending chunk of
+    loci at a group's first breakend, so the card's run finished the head's
+    chunks with the same loci, and the same alignment-property ratchet, that
+    a --device cpu re-preprocess of the head at the same chunk finishes."""
+    from varlociraptor_tpu_torch.calling.variants import collect_variants
+    from varlociraptor_tpu_torch.io.vcf import open_variant_file
+
+    per_record = [collect_variants(r) for r in open_variant_file(candidates)]
+    total = {k: sum(i.kind == k for infos in per_record for i in infos) for k in kinds}
+    seen, groups = dict.fromkeys(kinds, 0), set()
+    for n, infos in enumerate(per_record):
+        starts = [i for i in infos if i.kind == "breakend" and i.haplotype not in groups]
+        if starts and all(seen[k] >= min(n_min, total[k]) for k in kinds):
+            return n, seen
+        groups.update(i.haplotype for i in starts)
+        for i in infos:
+            if i.kind in seen:
+                seen[i.kind] += 1
+    return len(per_record), seen
+
+
+def odd_panels_vs_plain(launches):
+    """The first KINDS_CHECKED K2 / K3 launches of each whose panel is not
+    128 x 128, again through the launch helper (not counted) against the
+    plain kernel on their own inputs (K23_TOL above FORWARD_FLOOR), timed
+    with their bound."""
+    import numpy as np
+
+    from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+
+    plain = {"vlt_pairhmm_exact": ("exact", phc.exact_forward_reference),
+             "vlt_pairhmm_general": ("general", phc.general_forward_reference)}
+    out, worst = [], {"exact": 0.0, "general": 0.0}
+    for fn, (kind, ref_fn) in plain.items():
+        odd = [r for r in launches if r["fn"] == fn
+               and (r["allele"].shape[1], r["read"].shape[1]) != (128, 128)][:KINDS_CHECKED]
+        for r in odd:
+            args, tile = r["args"], r["tile"]
+            g = phc._launch(fn, *args, tile=tile).cpu().numpy()
+            p = ref_fn(*args).cpu().numpy()
+            if not (np.array_equal(np.isfinite(g), np.isfinite(p))
+                    and np.array_equal(g <= -1e30, p <= -1e30)):
+                raise PhaseError(f"{kind} at {tuple(args[0].shape)}: finiteness or -1e30 "
+                                 "items differ from the plain version")
+            live = p > -1e30
+            deep = live & (g < FORWARD_FLOOR) & (p < FORWARD_FLOOR)
+            held = live & ~deep
+            err = np.abs(g[held] - p[held])
+            rel = float(np.max(err / np.maximum(1.0, np.abs(p[held])))) if held.any() else 0.0
+            if not rel <= K23_TOL:
+                raise PhaseError(f"{kind} at {tuple(args[0].shape)}, tile {tile}: rel err "
+                                 f"{rel} > {K23_TOL} above {FORWARD_FLOOR} nats")
+            B, Xp = args[0].shape
+            case = {"kernel": kind, "B": B, "Xp": Xp, "Yp": args[1].shape[1],
+                    "tile": list(tile), "max_abs_err": float(err.max()) if held.any() else 0.0,
+                    "max_rel_err": rel, "items_below_floor": int(deep.sum()),
+                    "worst_below_floor": float(np.max(np.abs(g[deep] - p[deep])))
+                    if deep.any() else 0.0,
+                    "ms": cuda_ms(lambda: phc._launch(fn, *args, tile=tile), 10, ahead=True),
+                    "plain_ms": cuda_ms(lambda: ref_fn(*args), 2)}
+            cells = (args[3].double() * args[4].double()).sum().item()
+            case.update(roofline(OPS_PER_CELL[kind] * cells,
+                                 sum(x.numel() * x.element_size() for x in args) + 4 * B))
+            worst[kind] = max(worst[kind], case["max_abs_err"])
+            out.append(case)
+    return out, worst
+
+
+def capture_testcase(w, obs, scenario, prefix, locus):
+    """``call variants generic --testcase-*`` of the port's CLI on the card."""
+    t0 = time.perf_counter()
+    rc = cli_quiet(["call", "variants", "generic", "--scenario", str(scenario), "--obs",
+                    f"tumor={obs['tumor']}", f"normal={obs['normal']}",
+                    "--output", str(prefix) + ".calls.vcf", "--testcase-locus", locus,
+                    "--testcase-prefix", str(prefix), "--device", "cuda"])
+    if rc != 0:
+        raise PhaseError(f"kinds_and_testcases: the capture at {locus} returned {rc}")
+    return time.perf_counter() - t0
+
+
+def phase_kinds_and_testcases(work):
+    """(i): (i1) the all-kinds world through estimate, preprocess on the
+    card (and the normal's head again with the other gap model, so that K2
+    and K3 both launch; their launches by shape, the first launches of
+    other panels than 128 x 128 against the plain kernel), a --device cpu
+    re-preprocess of the head, call and FDR; (i2) one testcase per kind
+    captured with the port's CLI and replayed on the card and on the CPU."""
+    import contextlib as _contextlib
+    import io
+
+    import numpy as np
+    import yaml
+
+    from varlociraptor_tpu_torch.bench_utils import OTHER_KINDS, synth_preprocess_world
+    from varlociraptor_tpu_torch.calling.preprocess import PreprocessOptions, preprocess
+    from varlociraptor_tpu_torch.compare import compare_observation_files, compare_vcf_text
+    from varlociraptor_tpu_torch.estimation.alignment_properties import (
+        AlignmentProperties,
+        GapParams,
+    )
+    from varlociraptor_tpu_torch.grammar.scenario import tumor_normal_scenario
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.testcase import Testcase
+
+    res = {"phase": "kinds_and_testcases"}
+    secs = res["seconds"] = {}
+    t0 = time.perf_counter()
+    w = synth_preprocess_world(work / "world", seed=0, genome_len=KINDS_GENOME, **KINDS_INDELS,
+                               kinds=KINDS_PER_KIND, ratchet=KINDS_RATCHET,
+                               methylation=KINDS_PER_KIND)
+    secs["world"] = time.perf_counter() - t0
+    n = w["n_candidates"]
+    res.update(genome_len=KINDS_GENOME, candidates=n, reads=w["reads"])
+
+    # (i1) estimate on the normal, preprocess both samples on the card
+    props_path = work / "props.json"
+    props = estimate_props(w, props_path, secs)
+    start = {k: getattr(props, k) for k in
+             ("max_del_cigar_len", "max_ins_cigar_len", "frac_max_softclip")}
+    res["estimate"] = {"maxima": start, "gap_params": json.loads(props.to_json())["gap_params"]}
+    head_n, per_kind = kinds_head(w["candidates"], OTHER_KINDS, KINDS_CPU)
+    head = work / f"candidates_{head_n}.vcf"
+    head_of_vcf(w["candidates"], head, head_n)
+    finite = np.isfinite(props.gap_params.prob_insertion_extend_artifact) or \
+        np.isfinite(props.gap_params.prob_deletion_extend_artifact)
+    other = AlignmentProperties.from_json(props.to_json())
+    other.gap_params = GapParams() if finite else GapParams(*GAP_ONT)
+    other_path = work / "props_other.json"
+    other_path.write_text(other.to_json())
+    reset_pairhmm_counts()  # main path: (i1)
+    k1.ll_classes.launches = 0
+    with timed_pairhmm() as hmm_stats:
+        obs, forwards = preprocess_samples(w, work, props_path, secs, "cuda")
+        t0 = time.perf_counter()
+        rc = cli_quiet(["preprocess", "variants", w["fasta"], "--bam", w["normal"],
+                        "--candidates", str(head), "--output", str(work / "normal_other.obs"),
+                        "--alignment-properties", str(other_path), "--device", "cuda"])
+        secs["preprocess_normal_head_other_model"] = time.perf_counter() - t0
+    launches = pairhmm_counts()
+    if rc != 0 or min(launches["exact"], launches["general"]) == 0 or launches["positional"]:
+        raise PhaseError(f"kinds_and_testcases: K2 and K3 must launch, K4 not: {launches}")
+    res["pairhmm_launches"] = dict(launches)
+    res["pairhmm_forwards_by_sample"] = forwards
+    res["loci_per_s"] = {s: n / secs[f"preprocess_{s}"] for s in ("tumor", "normal")}
+    pairhmm_times(res, hmm_stats, secs["preprocess_tumor"] + secs["preprocess_normal"]
+                  + secs["preprocess_normal_head_other_model"])
+    res["k2_shapes"] = hmm_stats["shapes"]["vlt_pairhmm_exact"]
+    res["k3_shapes"] = hmm_stats["shapes"]["vlt_pairhmm_general"]
+    res["odd_panels_vs_plain"], worst = odd_panels_vs_plain(hmm_stats["all"])
+    if not res["odd_panels_vs_plain"]:
+        raise PhaseError("kinds_and_testcases: no K2 / K3 launch had another panel than 128 x 128")
+    del hmm_stats
+
+    # the head of the candidates again on the CPU, every kind compared alone
+    res["cuda_vs_cpu"] = {"head_records": head_n, "per_kind": per_kind, "samples": {}}
+    for sample in ("tumor", "normal"):
+        cpu_obs = work / f"{sample}.cpu.obs"
+        t0 = time.perf_counter()
+        preprocess(str(head), w[sample], w["fasta"], str(cpu_obs), sample_name=sample,
+                   alignment_properties=AlignmentProperties.from_json(props_path.read_text()),
+                   options=PreprocessOptions(device_chunk=64, log_mode="silent"), device="cpu")
+        secs[f"cpu_preprocess_{sample}_{head_n}"] = time.perf_counter() - t0
+        by_kind = {}
+        for kind in OTHER_KINDS + ("deletion", "insertion", "snv"):
+            problems, info = compare_observation_files(cpu_obs, obs[sample], n=head_n,
+                                                       kinds={kind})
+            if problems:
+                raise PhaseError(f"kinds_and_testcases cuda vs cpu ({sample}, {kind}): "
+                                 + "; ".join(problems[:3]))
+            by_kind[kind] = info
+        res["cuda_vs_cpu"]["samples"][sample] = by_kind
+    # call on the card, FDR, recall of the planted somatic indels
+    call_and_filter(w, work, obs, secs, res, "cuda")
+    launches["ll_classes"] = k1.ll_classes.launches
+
+    # (i2) one testcase per kind: captured on the card, replayed on both
+    scenario = work / "scenario.yaml"
+    scenario.write_text(yaml.safe_dump(tumor_normal_scenario(0.75).doc))
+    res["testcases"] = {}
+
+    def counts():
+        return {**pairhmm_counts(), "ll_classes": k1.ll_classes.launches}
+
+    for kind in OTHER_KINDS:
+        t = w["truth"]["kinds"][kind]
+        planted = t.get("germline", []) + t.get("somatic", []) + t.get("methylated", [])
+        locus = f"chr1:{min(planted or t['decoy']) + 1}"
+        prefix = work / f"testcase_{kind}"
+        before = counts()
+        rec = {"locus": locus, "capture_s": capture_testcase(w, obs, scenario, prefix, locus)}
+        rec["capture_launches"] = {k: v - before[k] for k, v in counts().items()}
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            before = counts()
+            t0 = time.perf_counter()
+            with _contextlib.redirect_stderr(io.StringIO()), timed_pairhmm() as replay:
+                records, _ = Testcase(prefix).run(work / f"replay_{kind}_{dev}", device=dev)
+            rec[f"{dev}_replay_s"] = time.perf_counter() - t0
+            texts[dev] = (work / f"replay_{kind}_{dev}" / "calls.vcf").read_text()
+            if dev == "cuda":
+                rec["records"] = len(records)
+                rec["replay_launches"] = {k: v - before[k] for k, v in counts().items()}
+                rec["replay_shapes"] = {fn.split("_")[-1]: sorted(s["by_shape"]) for fn, s in
+                                        replay["shapes"].items() if s["by_shape"]}
+        # 30x loci of a BAM world, as phase (h2)'s: WORLD_VCF_TOL
+        problems, _ = compare_vcf_text(texts["cpu"], texts["cuda"], rel_tol=WORLD_VCF_TOL)
+        if problems or not rec["records"] or not rec["replay_launches"]["ll_classes"]:
+            raise PhaseError(f"kinds_and_testcases replay {kind}: {problems[:3]}, "
+                             f"{rec['records']} records, launches {rec['replay_launches']}")
+        for k in ("exact", "general", "ll_classes"):
+            launches[k] += rec["capture_launches"][k] + rec["replay_launches"][k]
+        res["testcases"][kind] = rec
+    replayed = sum(r["replay_launches"]["exact"] + r["replay_launches"]["general"]
+                   for r in res["testcases"].values())
+    if replayed == 0:
+        raise PhaseError("kinds_and_testcases: no K2 / K3 launch in the card's replays")
+    res["launches"] = launches
+    return res, launches, worst
+
 
 def main():
     import os
@@ -1715,8 +1988,12 @@ def main():
     h, legacy_launches, k1_legacy = phase_legacy_and_estimates(
         work, cli_files, pp_files, serial["world"]["truth"])
     emit(h)
+    (work / "kinds").mkdir()
+    i, kinds_launches, kinds_worst = phase_kinds_and_testcases(work / "kinds")
+    emit(i)
     by_phase = {kind: {"preprocess": hmm_launches[kind], "homopolymer": hp_launches[kind],
-                       "preprocess_threads": thread_launches[kind]}
+                       "preprocess_threads": thread_launches[kind],
+                       "kinds_and_testcases": kinds_launches[kind]}
                 for kind in PAIRHMM_KINDS}
     repo_attempts = []
     for name, stack in refuse_jax.attempts:
@@ -1731,15 +2008,18 @@ def main():
         **{k: case[k] for k in ("B", "Xp", "Yp", "tile")}, **timing(case)}}
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches + mode_launches + legacy_launches,
+        "replaces": K1_REPLACES,
+        "launches": launches + mode_launches + legacy_launches + kinds_launches["ll_classes"],
         "launches_by_phase": {"cli": launches, "engine_modes": mode_launches,
-                              "legacy_and_estimates": legacy_launches},
+                              "legacy_and_estimates": legacy_launches,
+                              "kinds_and_testcases": kinds_launches["ll_classes"]},
         "max_abs_err": max([a["max_abs_err"]] + [c["max_abs_err"] for c in k1_legacy]),
         **timing(bench), "library_ms": None,
     }] + [{
         "name": f"pairhmm_{kind}", "route": "cuda", "source": K23_SOURCE,
         "replaces": replaces, "launches": sum(by_phase[kind].values()),
-        "launches_by_phase": by_phase[kind], "max_abs_err": a2["max_abs_err"][kind], **timing(hmm_bench[kind]),
+        "launches_by_phase": by_phase[kind],
+        "max_abs_err": max(a2["max_abs_err"][kind], kinds_worst[kind]), **timing(hmm_bench[kind]),
         "library_ms": None, **main_shape(hmm_main[kind]),
     } for kind, replaces in (("exact", K2_REPLACES), ("general", K3_REPLACES))] + [{
         "name": "pairhmm_positional", "route": "cuda", "source": K23_SOURCE,

@@ -15,7 +15,11 @@ the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py, in
 tumor-normal and in chip_smoke.py phase (f)'s modes (--full-prior, l2fc,
 cyclic contamination); the legacy per-WorkItem caller's VCF on the card
 against the CPU's (compare_vcf_text); the CNV Viterbi's state path on the
-card equal to the CPU's.
+card equal to the CPU's; the all-kinds world (bench_utils.KINDS_WORLD)
+preprocessed on the card against the CPU kind by kind, each kind's first K2 /
+K3 launch of another panel than 128 x 128 against the plain kernel, and a
+testcase of each kind replayed on the card against the CPU (PHRED and AF
+within 1e-3 * max(1, |x|), chip_smoke.py's WORLD_VCF_TOL for such loci).
 """
 
 import math
@@ -400,3 +404,143 @@ def test_positional_wrapper_checks_its_inputs(card):
     with pytest.raises(ValueError):
         phc.positional_forward(a, r, q, al, rl, io, ie, do, de.cpu())
     assert phc.positional_forward.launches == n0
+
+
+@pytest.fixture(scope="module")
+def kinds_world(tmp_path_factory):
+    """bench_utils.KINDS_WORLD with its normal's estimate (skips without a
+    card before building anything)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
+    from varlociraptor_tpu_torch.bench_utils import KINDS_WORLD, synth_preprocess_world
+    from varlociraptor_tpu_torch.estimation.alignment_properties import estimate
+    from varlociraptor_tpu_torch.io.bam import BamReader
+    from varlociraptor_tpu_torch.io.fasta import FastaBuffer
+
+    w = synth_preprocess_world(tmp_path_factory.mktemp("kinds"), **KINDS_WORLD)
+    w["props"] = estimate(BamReader(w["normal"]), reference=FastaBuffer(w["fasta"])).to_json()
+    return w
+
+
+def _kind_subset(w, kind, path):
+    """The world's candidate records of one kind (all of a BND group's)."""
+    from varlociraptor_tpu_torch.calling.variants import collect_variants
+    from varlociraptor_tpu_torch.io.vcf import open_variant_file
+
+    lines = open(w["candidates"]).read().splitlines()
+    keep = [ln for ln in lines if ln.startswith("#")]
+    recs = list(open_variant_file(w["candidates"]))
+    body = [ln for ln in lines if not ln.startswith("#")]
+    keep += [ln for ln, rec in zip(body, recs)
+             if any(i.kind == kind for i in collect_variants(rec))]
+    path.write_text("\n".join(keep) + "\n")
+    return str(path)
+
+
+def test_kinds_preprocess_on_the_card_matches_the_cpu(card, kinds_world, tmp_path):
+    """The all-kinds world preprocessed on the card (64 loci per launch)
+    against the CPU at the same chunk (so the same alignment-property
+    ratchet), each kind compared alone (compare_observation_files)."""
+    from varlociraptor_tpu_torch.bench_utils import OTHER_KINDS
+    from varlociraptor_tpu_torch.calling.preprocess import PreprocessOptions, preprocess
+    from varlociraptor_tpu_torch.compare import compare_observation_files
+    from varlociraptor_tpu_torch.estimation.alignment_properties import AlignmentProperties
+
+    w = kinds_world
+    n0 = phc.exact_forward.launches + phc.general_forward.launches
+    for sample in ("tumor", "normal"):
+        out = {}
+        for dev in (card, "cpu"):
+            out[dev] = tmp_path / f"{sample}.{dev}.obs"
+            preprocess(w["candidates"], w[sample], w["fasta"], str(out[dev]),
+                       sample_name=sample,
+                       alignment_properties=AlignmentProperties.from_json(w["props"]),
+                       options=PreprocessOptions(log_mode="silent", device_chunk=64),
+                       device=dev)
+        for kind in OTHER_KINDS + ("deletion", "insertion", "snv"):
+            problems, info = compare_observation_files(out["cpu"], out[card], kinds={kind})
+            assert not problems, (sample, kind, problems)
+            assert info["records"] > 0
+    assert phc.exact_forward.launches + phc.general_forward.launches > n0
+
+
+@pytest.mark.parametrize("kind", ["mnv", "none", "inversion", "duplication", "replacement",
+                                  "breakend", "methylation"])
+def test_kind_first_other_panel_matches_plain(card, kinds_world, tmp_path, kind):
+    """The tumor's records of one kind on the card: the first K2 / K3
+    launch whose panel is not 128 x 128 against the plain kernel on the
+    same inputs, items below -100 nats in both excepted (chip_smoke.py's
+    FORWARD_FLOOR).  The SV and replacement kinds must launch."""
+    from varlociraptor_tpu_torch.calling.preprocess import PreprocessOptions, preprocess
+    from varlociraptor_tpu_torch.estimation.alignment_properties import AlignmentProperties
+
+    w = kinds_world
+    seen = []
+
+    def hook(stage, fn_name, allele, read, tensors, tile):
+        if stage == "enter":
+            seen.append((fn_name, allele, read, tensors, tile))
+
+    phc.launch_hook = hook
+    try:
+        preprocess(_kind_subset(w, kind, tmp_path / "subset.vcf"), w["tumor"], w["fasta"],
+                   str(tmp_path / "subset.obs"), sample_name="tumor",
+                   alignment_properties=AlignmentProperties.from_json(w["props"]),
+                   options=PreprocessOptions(log_mode="silent"), device=card)
+    finally:
+        phc.launch_hook = None
+    other = [s for s in seen if (s[1].shape[1], s[2].shape[1]) != (128, 128)]
+    if kind in ("inversion", "duplication", "replacement", "breakend"):
+        assert seen, kind  # realigned: the pair-HMM ran
+    for fn_name, allele, read, tensors, tile in other[:1]:
+        ref_fn = (phc.exact_forward_reference if fn_name == "vlt_pairhmm_exact"
+                  else phc.general_forward_reference)
+        got = phc._launch(fn_name, allele, read, *tensors, tile=tile).cpu().numpy()
+        ref = ref_fn(allele, read, *tensors).cpu().numpy()
+        assert np.array_equal(np.isfinite(got), np.isfinite(ref))
+        assert np.array_equal(got <= -1e30, ref <= -1e30)
+        # chip_smoke.FORWARD_FLOOR: a read that aligns nowhere (both values
+        # below -100 nats) sits at float32's underflow edge
+        held = (ref > -1e30) & ~((got < -100.0) & (ref < -100.0))
+        err = np.abs(got[held] - ref[held]) / np.maximum(1.0, np.abs(ref[held]))
+        assert err.max() <= PAIRHMM_TOL, (kind, allele.shape, err.max())
+
+
+@pytest.mark.parametrize("kind", ["mnv", "none", "inversion", "duplication", "replacement",
+                                  "breakend", "methylation"])
+def test_testcase_replay_on_the_card_matches_the_cpu(card, kinds_world, tmp_path, kind):
+    """One testcase of the kind, captured with the port's CLI from the
+    card's observation files, replayed with ``Testcase.run`` on the card
+    and on the CPU: the calls agree (compare_vcf_text), and the card's
+    replay launches K1."""
+    import yaml
+
+    from varlociraptor_tpu_torch import cli
+    from varlociraptor_tpu_torch.compare import compare_vcf_text
+    from varlociraptor_tpu_torch.grammar.scenario import tumor_normal_scenario
+    from varlociraptor_tpu_torch.testcase import Testcase
+
+    w = kinds_world
+    obs = {}
+    for sample in ("tumor", "normal"):
+        obs[sample] = str(tmp_path / f"{sample}.obs")
+        assert cli.run(["preprocess", "variants", w["fasta"], "--bam", w[sample],
+                        "--candidates", w["candidates"], "--output", obs[sample],
+                        "--sample-name", sample]) == 0
+    scenario = tmp_path / "scenario.yaml"
+    scenario.write_text(yaml.safe_dump(tumor_normal_scenario(0.75).doc))
+    t = w["truth"]["kinds"][kind]
+    planted = t.get("germline", []) + t.get("somatic", []) + t.get("methylated", [])
+    prefix = tmp_path / "testcase"
+    assert cli.run(["call", "variants", "generic", "--scenario", str(scenario), "--obs",
+                    f"tumor={obs['tumor']}", f"normal={obs['normal']}", "--output",
+                    str(tmp_path / "calls.vcf"), "--testcase-locus",
+                    f"chr1:{min(planted or t['decoy']) + 1}",
+                    "--testcase-prefix", str(prefix)]) == 0
+    n0 = k1.ll_classes.launches
+    records, _ = Testcase(prefix).run(tmp_path / "gpu")
+    assert records and k1.ll_classes.launches > n0
+    Testcase(prefix).run(tmp_path / "cpu", device="cpu")
+    problems, _ = compare_vcf_text((tmp_path / "cpu" / "calls.vcf").read_text(),
+                                   (tmp_path / "gpu" / "calls.vcf").read_text(), rel_tol=1e-3)
+    assert not problems, (kind, problems)

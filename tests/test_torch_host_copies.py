@@ -10,7 +10,8 @@ top-level functions named in ``PORTED`` (rewritten for torch and a device,
 held to the JAX package by their own tests), the lines named in
 ``REWRITTEN`` (where the port's native host library lives, what a module's
 docstring says of its device code, the reading of BGZF BCF observation
-files), and paths into the Rust reference's
+files, the ``device`` of the testcase runner, the port's own package name in
+a docstring and a logger name), and paths into the Rust reference's
 sources, which the copies cite from the reference repository's root
 (``src/...``).  The native host library's C++
 source is a byte-for-byte copy of ``native/vlt_native.cpp``."""
@@ -68,6 +69,18 @@ COPIES = {
     "utils/rust_rand.py": set(),
     "estimation/contamination.py": set(),
     "calling/cnvs.py": set(),
+    "candidates/__init__.py": set(),
+    "candidates/methylation.py": set(),
+    "filtration/posterior_odds.py": set(),
+    "conversion/__init__.py": set(),
+    "conversion/decode_phred.py": set(),
+    "conversion/genotype.py": set(),
+    "estimation/mutational_burden.py": set(),
+    "estimation/effective_mutation_rate.py": set(),
+    "estimation/sample_variants.py": set(),
+    "estimation/prior_plot.py": set(),
+    "testcase_builder.py": set(),
+    "testcase.py": set(),
 }
 
 # copy -> top-level functions that the copy rewrites: the torch Viterbi and
@@ -95,6 +108,30 @@ REWRITTEN = {
     "calling/ref_obs.py": {
         '        except (OSError, UnicodeDecodeError):  # a BGZF BCF is binary':
             "        except OSError:",
+    },
+    # Testcase.run and Testcase.check take the device of preprocess and
+    # call (tests/test_torch_testcase.py replays captures against JAX)
+    "testcase.py": {
+        '    def run(self, workdir=None, pairhmm_mode=None, obs_suffix="jsonl", device="cuda"):':
+            '    def run(self, workdir=None, pairhmm_mode=None, obs_suffix="jsonl"):',
+        "        ``device``: where the pair-HMM (preprocess) and the posterior engine": None,
+        '        (call) run, "cuda" or "cpu".': None,
+        "                device=device,": None,
+        "        call_generic(scenario, obs_paths, out_vcf, call_options, device=device)":
+            "        call_generic(scenario, obs_paths, out_vcf, call_options)",
+        '    def check(self, workdir=None, pairhmm_mode=None, device="cuda"):':
+            "    def check(self, workdir=None, pairhmm_mode=None):",
+        "        records, sample_order = self.run(workdir, pairhmm_mode=pairhmm_mode, device=device)":
+            "        records, sample_order = self.run(workdir, pairhmm_mode=pairhmm_mode)",
+    },
+    # the port's own package names where the original names its own
+    "testcase_builder.py": {
+        "The produced directory replays through ``varlociraptor_tpu_torch.testcase.Testcase``.":
+            "The produced directory replays through ``varlociraptor_tpu.testcase.Testcase``.",
+    },
+    "estimation/mutational_burden.py": {
+        'log = logging.getLogger("varlociraptor_tpu_torch.tmb")':
+            'log = logging.getLogger("varlociraptor_tpu.tmb")',
     },
     "calling/cnvs.py": {
         "Device shape: the emission matrix [T loci, K states] is computed as one":

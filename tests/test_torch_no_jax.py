@@ -9,7 +9,9 @@ back from CUDA to the CPU.
   observation files, and ``estimate alignment-properties`` and
   ``preprocess variants`` (default, ``--pairhmm-mode homopolymer`` with
   hop params, and ``--threads 2``: two spawned workers) on a tiny synthetic
-  BAM world, with ``--device cpu``;
+  BAM world, with ``--device cpu``; then ``filter-calls posterior-odds``,
+  ``decode-phred``, ``genotype`` and ``methylation-candidates``, and a
+  testcase captured from the world and replayed on the CPU;
 * ``--device cuda`` on a machine without a usable card raises, for ``call
   variants``, ``estimate contamination``, ``call cnvs`` and ``preprocess``;
 * no file of the port (nor chip_smoke.py and the port's scripts) imports
@@ -17,6 +19,7 @@ back from CUDA to the CPU.
   modules: the port keeps its own copies of those.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -101,6 +104,28 @@ print("THREADS", len(ObservationReader(work + "/t_par.obs").read_window(100)[0])
       "WORKERS", len(workers), sum(r["records"] for r in workers))
 print("HOMOPOLYMER", len(ObservationReader(work + "/t_hp.obs").read_window(100)[0]),
       "K4", bool(k4_calls))
+for argv in (["filter-calls", "posterior-odds", work + "/calls.vcf", "--events",
+              "somatic_tumor", "--odds", "barely", "--output", work + "/odds.vcf"],
+             ["decode-phred", work + "/calls.vcf", "--output", work + "/decoded.vcf"],
+             ["genotype", work + "/calls.vcf", "--output", work + "/gt.vcf"],
+             ["methylation-candidates", w["fasta"], work + "/meth.vcf"]):
+    assert cli.run(argv) == 0, argv
+print("SUBCOMMANDS", [sum(not l.startswith("#") for l in open(work + f))
+                      for f in ("/odds.vcf", "/decoded.vcf", "/gt.vcf", "/meth.vcf")])
+import yaml
+from varlociraptor_tpu_torch.grammar.scenario import tumor_normal_scenario
+open(work + "/scenario.yaml", "w").write(yaml.safe_dump(tumor_normal_scenario(0.75).doc))
+assert cli.run(["preprocess", "variants", w["fasta"], "--bam", w["normal"],
+                "--candidates", w["candidates"], "--output", work + "/n.obs",
+                "--device", "cpu"]) == 0
+locus = next(l for l in open(w["candidates"]) if not l.startswith("#")).split("\t")[1]
+assert cli.run(["call", "variants", "generic", "--scenario", work + "/scenario.yaml",
+                "--obs", "tumor=" + work + "/t.obs", "normal=" + work + "/n.obs",
+                "--output", work + "/generic.vcf", "--testcase-locus", "chr1:" + locus,
+                "--testcase-prefix", work + "/testcase", "--device", "cpu"]) == 0
+from varlociraptor_tpu_torch.testcase import Testcase
+replayed, samples = Testcase(work + "/testcase").run(work + "/replay", device="cpu")
+print("TESTCASE", len(replayed), samples)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "varlociraptor_tpu")
                 and sys.modules[m] is not None)
@@ -125,6 +150,10 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert "PREPROCESSED 12" in proc.stdout
     assert "THREADS 12 WORKERS 2 12" in proc.stdout
     assert "HOMOPOLYMER 12 K4 True" in proc.stdout
+    # the filter keeps some of the 40 calls; the 8 kb world holds ~500 CpGs
+    counts = ast.literal_eval(proc.stdout.split("SUBCOMMANDS ")[1].splitlines()[0])
+    assert 0 < counts[0] <= 40 and counts[1:3] == [40, 40] and counts[3] > 300
+    assert "TESTCASE 1 ['normal', 'tumor']" in proc.stdout
     assert (tmp_path / "kept.vcf").exists()
 
 

@@ -422,33 +422,134 @@ def pairhmm_shape_items(B, X, Y, seed=0, err=0.01):
 
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 _OP_M, _OP_I, _OP_D, _OP_S = 0, 1, 2, 4
+_COMPLEMENT = np.zeros(256, np.uint8)
+_COMPLEMENT[_ACGT] = _ACGT[::-1]
+
+
+def _revcomp(seq):
+    return _COMPLEMENT[seq[::-1]]
 
 
 def _haplotype(ref, events):
     """Apply sorted, non-overlapping events [(pos, kind, length, alt_seq)]
-    (kind "del": delete ref[pos+1 : pos+1+length]; "ins": insert alt_seq
-    after ref[pos]; "snv": ref[pos] -> alt_seq) to ``ref``.  Returns the
-    haplotype (uint8) and, for each of its bases, its reference position
-    (-1 for an inserted base)."""
+    to ``ref``: "del" deletes ref[pos+1 : pos+1+length]; "ins" inserts
+    alt_seq after ref[pos]; "rep" deletes ref[pos+1 : pos+1+length] and
+    inserts alt_seq in its place; "snv" / "mnv" put alt_seq over
+    ref[pos : pos+len(alt_seq)]; "inv" reverse-complements ref[pos :
+    pos+length]; "dup" repeats ref[pos : pos+length] once after itself.
+    Returns the haplotype (uint8) and, for each of its bases, its reference
+    position: -1 for an inserted base, -(p + 2) for reference base p read
+    on the other strand (inside an inversion)."""
     seqs, refpos = [], []
     cur = 0
     for pos, kind, length, alt in events:
-        stop = pos + 1 if kind in ("del", "ins") else pos
+        stop = (pos + 1 if kind in ("del", "ins", "rep")
+                else pos + length if kind == "dup" else pos)
         seqs.append(ref[cur:stop])
         refpos.append(np.arange(cur, stop, dtype=np.int64))
         if kind == "del":
             cur = pos + 1 + length
-        elif kind == "ins":
+        elif kind in ("ins", "rep"):
             seqs.append(np.frombuffer(alt, np.uint8))
-            refpos.append(np.full(length, -1, np.int64))
-            cur = pos + 1
+            refpos.append(np.full(len(alt), -1, np.int64))
+            cur = pos + 1 + (length if kind == "rep" else 0)
+        elif kind == "inv":
+            seqs.append(_revcomp(ref[pos : pos + length]))
+            refpos.append(-np.arange(pos + length - 1, pos - 1, -1, dtype=np.int64) - 2)
+            cur = pos + length
+        elif kind == "dup":
+            seqs.append(ref[pos : pos + length])
+            refpos.append(np.arange(pos, pos + length, dtype=np.int64))
+            cur = pos + length
         else:
             seqs.append(np.frombuffer(alt, np.uint8))
-            refpos.append(np.array([pos], np.int64))
-            cur = pos + 1
+            refpos.append(np.arange(pos, pos + len(alt), dtype=np.int64))
+            cur = pos + len(alt)
     seqs.append(ref[cur:])
     refpos.append(np.arange(cur, len(ref), dtype=np.int64))
     return np.concatenate(seqs), np.concatenate(refpos)
+
+
+def _off_the_line(rp):
+    """Whether a read's bases leave the reference's forward line other than
+    by an indel: bases on the other strand, or positions that step back."""
+    return bool((rp <= -2).any() or (np.diff(rp[rp >= 0]) <= 0).any())
+
+
+def _split_alignment(seq, rp):
+    """What an aligner reports for a read across an SV junction (``rp`` as
+    :func:`_haplotype` gives it): a read with most of its bases on the other
+    strand aligns reversed (the reverse complement, positions mirrored);
+    then the longest stretch of bases in reference order stays aligned and
+    the rest is soft-clipped.  Returns (seq, positions with the clipped
+    bases at -1, reversed)."""
+    flipped = 2 * int((rp <= -2).sum()) > len(rp)
+    if flipped:
+        seq = _revcomp(seq)
+        rp = np.where(rp == -1, -1, -rp - 2)[::-1]
+    best, start, last = (0, 0), 0, -1
+    for i, p in enumerate(rp.tolist() + [-2]):
+        if p <= -2 or 0 <= p <= last:
+            if i - start > best[1] - best[0]:
+                best = (start, i)
+            start, last = (i + 1, -1) if p <= -2 else (i, p)
+        elif p >= 0:
+            last = p
+    out = np.full(len(rp), -1, np.int64)
+    out[best[0] : best[1]] = rp[best[0] : best[1]]
+    return seq, out, flipped
+
+
+def _clip_reads(rng, rows, seqs, cigars, ref_start, ref_end, L, lo, hi, lead):
+    """Soft-clip ``rows`` (reads with one M op): lo-hi random bases at the
+    read's start (``lead``) or end, as adapter remnants and chimeric ends
+    leave them."""
+    for i in rows.tolist():
+        k = int(rng.integers(lo, hi + 1))
+        junk = _ACGT[rng.integers(0, 4, k)]
+        if lead:
+            seqs[i, :k] = junk
+            cigars[i] = [(_OP_S, k), (_OP_M, L - k)]
+            ref_start[i] += k
+        else:
+            seqs[i, L - k :] = junk
+            cigars[i] = [(_OP_M, L - k), (_OP_S, k)]
+            ref_end[i] = ref_start[i] + L - k
+
+
+def _read_refpos(cigar, start, L):
+    """Reference position of each read base (-1: inserted or clipped)."""
+    if cigar is None:
+        return start + np.arange(L)
+    out, q, p = np.full(L, -1, np.int64), 0, start
+    for op, n in cigar:
+        if op == _OP_M:
+            out[q : q + n] = np.arange(p, p + n)
+            q, p = q + n, p + n
+        elif op in (_OP_I, _OP_S):
+            q += n
+        elif op == _OP_D:
+            p += n
+    return out
+
+
+def _methylation_tags(seq, rp, meth, rng):
+    """5mC MM / ML tags (SAM tags spec) of a forward-strand read: a call at
+    every C that sits on a CpG of the reference (``meth``: -1 no CpG, 0
+    unmethylated, 1 methylated), ML drawn high with probability 0.9 on a
+    methylated CpG and 0.05 on an unmethylated one."""
+    cs = np.nonzero(seq == ord("C"))[0]
+    on = rp[cs]
+    keep = on >= 0
+    keep[keep] = meth[on[keep]] >= 0
+    idx = np.nonzero(keep)[0]
+    if not len(idx):
+        return {}
+    high = rng.random(len(idx)) < np.where(meth[on[idx]] == 1, 0.9, 0.05)
+    ml = np.where(high, rng.integers(180, 256, len(idx)), rng.integers(0, 61, len(idx)))
+    deltas = np.diff(np.concatenate([[-1], idx])) - 1
+    return {"MM": "C+m," + ",".join(map(str, deltas.tolist())) + ";",
+            "ML": ml.astype(np.uint8)}
 
 
 def _cigar(rp):
@@ -568,10 +669,16 @@ def _slip_reads(rows, starts, hseq, hmap, L, rng, seqs, cigars, ref_start, ref_e
 
 
 def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
-                      insert_mean, insert_sd, base_error, slip_rng=None):
+                      insert_mean, insert_sd, base_error, slip_rng=None, clips=(),
+                      meth=None, meth_rng=None):
     """Paired-end library over a diploid genome (each fragment samples one
     haplotype), sorted and written with BamWriter + BAI.  With ``slip_rng``,
-    reads carry homopolymer slips (:func:`_slip_reads`) drawn from it."""
+    reads carry homopolymer slips (:func:`_slip_reads`) drawn from it.  A
+    read across an SV junction is aligned by :func:`_split_alignment`.
+    ``clips``: (rng, n, lo, hi, lead, from_pos) each soft-clips n reads with
+    one M op that start at or after from_pos (:func:`_clip_reads`); ``meth``
+    (per reference base: -1 no CpG, 0 / 1 un- / methylated) puts 5mC MM / ML
+    tags drawn from ``meth_rng`` on the forward-strand reads."""
     from .io.bam import BamRecord, BamWriter
 
     L = read_len
@@ -591,6 +698,7 @@ def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
     ref_start = np.empty(N, np.int64)
     ref_end = np.empty(N, np.int64)
     cigars = [None] * N  # None: one M op of L bases
+    flipped = np.zeros(N, dtype=bool)
     for h, (hseq, hmap) in enumerate(haps):
         sel = np.nonzero(hap_of == h)[0]
         s = start[sel]
@@ -602,6 +710,8 @@ def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
         # reads off the reference's straight line carry an indel (or a clip)
         for i, si in zip(sel[~plain].tolist(), s[~plain].tolist()):
             rp = hmap[si : si + L]
+            if _off_the_line(rp):
+                seqs[i], rp, flipped[i] = _split_alignment(seqs[i], rp)
             cigars[i] = _cigar(rp)
             ref_start[i] = rp[rp >= 0][0]
             ref_end[i] = rp.max() + 1
@@ -610,6 +720,10 @@ def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
     n_err = rng.binomial(L, base_error, N)
     rows = np.repeat(np.arange(N), n_err)
     seqs[rows, rng.integers(0, L, len(rows))] = _ACGT[rng.integers(0, 4, len(rows))]
+    for crng, n, lo, hi, lead, from_pos in clips:
+        one_m = np.array([c is None for c in cigars]) & (ref_start >= from_pos)
+        rows = crng.choice(np.nonzero(one_m)[0], n, replace=False)
+        _clip_reads(crng, rows, seqs, cigars, ref_start, ref_end, L, lo, hi, lead)
     qual_pool = np.clip(rng.normal(36, 3, size=(256, L)), 10, 41).astype(np.uint8)
     tlen = (np.maximum(ref_end[0::2], ref_end[1::2])
             - np.minimum(ref_start[0::2], ref_start[1::2]))
@@ -618,23 +732,116 @@ def _simulate_library(path, chrom, ref_len, haps, rng, coverage, read_len,
     for i in order.tolist():
         k, first = i >> 1, (i & 1) == 0
         mate = i + 1 if first else i - 1
-        flag = 0x1 | 0x2 | (0x20 if first else 0x10) | (0x40 if first else 0x80)
+        flag = (0x1 | 0x2 | (0x10 if first == flipped[i] else 0)
+                | (0x20 if first != flipped[mate] else 0) | (0x40 if first else 0x80))
+        tags = {}
+        if meth is not None and not flipped[i]:
+            tags = _methylation_tags(seqs[i], _read_refpos(cigars[i], int(ref_start[i]), L),
+                                     meth, meth_rng)
         w.write_record(
             BamRecord(
                 qname=f"frag{k}", flag=flag, tid=0, pos=int(ref_start[i]), mapq=60,
                 cigar=cigars[i] or [(_OP_M, L)], mtid=0, mpos=int(ref_start[mate]),
                 tlen=int(tlen[k]) if first else -int(tlen[k]),
-                seq=seqs[i], qual=qual_pool[k % 256], tags={},
+                seq=seqs[i], qual=qual_pool[k % 256], tags=tags,
             )
         )
     w.close(index=True)
     return N
 
 
+# the all-kinds world of the CPU and card tests: TINY_WORLD's coverage and
+# reads (tests/test_torch_preprocess.py) on a 40 kb contig, which the SV
+# zones need, with every option on
+KINDS_WORLD = dict(seed=1, genome_len=40_000, coverage=6.0, n_germline=8, n_somatic=6,
+                   n_decoy=6, n_snv=4, kinds=4, ratchet=4, methylation=4, sv_len=(150, 400))
+# the candidate kinds the option adds, as VariantInfo.kind names them
+OTHER_KINDS = ("mnv", "none", "inversion", "duplication", "replacement", "breakend",
+               "methylation")
+
+_SV_MARGIN = 250  # bases kept free of other variants around an SV zone
+
+
+def _sv_zones(rng, genome_len, lens):
+    """Place zones of ``lens`` bases (each with _SV_MARGIN on both sides)
+    apart from each other at random in [500, genome_len - 500); returns
+    their starts, in the order of ``lens``."""
+    span = np.asarray(lens) + 2 * _SV_MARGIN
+    free = genome_len - 1000 - int(span.sum())
+    if free <= 0:
+        raise ValueError(f"{len(lens)} SVs do not fit in {genome_len} bases")
+    order = rng.permutation(len(lens))
+    gaps = np.floor(rng.dirichlet(np.ones(len(lens) + 1)) * free).astype(np.int64)
+    starts = np.empty(len(lens), np.int64)
+    at = 500
+    for k, z in enumerate(order.tolist()):
+        at += int(gaps[k])
+        starts[z] = at + _SV_MARGIN
+        at += int(span[z])
+    return starts
+
+
+def _inversion_breakends(ref, chrom, s, e, name):
+    """The four BND records of the inversion of ref[s:e] (VCF 4.2 joins,
+    the breakends varlociraptor builds for an INV record): (pos, REF, ALT,
+    ID, INFO)."""
+    b = lambda p: chr(ref[p])  # noqa: E731
+    ids = {k: f"{name}_{k}" for k in "wvux"}
+    rows = [(s - 1, f"{b(s - 1)}]{chrom}:{e}]", "w", "u"),
+            (s, f"[{chrom}:{e + 1}[{b(s)}", "v", "x"),
+            (e - 1, f"{b(e - 1)}]{chrom}:{s}]", "u", "w"),
+            (e, f"[{chrom}:{s + 1}[{b(e)}", "x", "v")]
+    return [(p, b(p), alt, ids[i], f"SVTYPE=BND;MATEID={ids[m]};EVENT={name}")
+            for p, alt, i, m in rows]
+
+
+def _plan_kinds(krng, ref, chrom, genome_len, kinds, sv_len):
+    """The SV zones of the all-kinds world: ``kinds`` INV and ``kinds`` DUP
+    records (half of each planted, the rest decoys at zones with no SV) and
+    the inversions written as BND groups (``kinds`` records: four per
+    group, half planted).  Returns (events by role, candidate rows, zone
+    [lo, hi) array, truth)."""
+    n_half = kinds // 2
+    n_bnd = max(kinds // 4, 1)
+    kind_of = (["inversion"] * kinds + ["duplication"] * kinds + ["breakend"] * n_bnd)
+    lo, hi = sv_len
+    lens = np.exp(krng.uniform(np.log(lo), np.log(hi), len(kind_of))).astype(np.int64)
+    starts = _sv_zones(krng, genome_len, lens)
+    events = {"germline": [], "somatic": []}
+    rows, truth = [], {}
+    seen = {}
+    for kind, s, L in zip(kind_of, starts.tolist(), lens.tolist()):
+        i = seen[kind] = seen.get(kind, -1) + 1
+        planted = i < (n_half if kind != "breakend" else (n_bnd + 1) // 2)
+        role = ("germline" if i % 2 == 0 else "somatic") if planted else "decoy"
+        truth.setdefault(kind, {"germline": [], "somatic": [], "decoy": []})
+        if kind == "breakend":
+            grp = _inversion_breakends(ref, chrom, s, s + L, f"bnd{i}")
+            rows += grp
+            truth[kind][role] += [r[0] for r in grp]
+        else:
+            sym = "<INV>" if kind == "inversion" else "<DUP>"
+            rows.append((s, chr(ref[s]), sym, ".",
+                         f"SVTYPE={sym[1:4]};END={s + L}"))
+            truth[kind][role].append(s)
+        if planted:
+            events[role].append((s, "inv" if kind != "duplication" else "dup", L, None))
+    zones = np.stack([starts - _SV_MARGIN, starts + lens + _SV_MARGIN], axis=1)
+    return events, rows, zones, truth
+
+
+def _random_bases_unlike(rng, ref_bases):
+    """One random base unlike each of ``ref_bases``."""
+    idx = np.zeros(256, np.int64)
+    idx[_ACGT] = np.arange(4)
+    return _ACGT[(idx[ref_bases] + rng.integers(1, 4, len(ref_bases))) % 4]
+
+
 def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
                            read_len=100, insert_mean=350.0, insert_sd=50.0,
                            base_error=0.003, n_germline=1000, n_somatic=500,
-                           n_decoy=500, n_snv=0, chrom="chr1", homopolymer=False):
+                           n_decoy=500, n_snv=0, chrom="chr1", homopolymer=False,
+                           kinds=0, ratchet=0, methylation=0, sv_len=(150, 2000)):
     """A tumor/normal preprocess world: FASTA, two indexed BAMs, candidates.
 
     One random contig of ``genome_len`` bases.  ``n_germline`` heterozygous
@@ -659,10 +866,42 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
     probability 0.005 x its length.  These draws come from a second
     generator seeded with (seed, 1).
 
+    The options below are off (0) by default, and then the draws and the
+    files are those of the plain world; their draws come from a generator
+    seeded with (seed, 2).
+
+    ``kinds=n``: candidates of every other kind that
+    ``calling/variants.py`` classifies, each kind half planted (alternately
+    germline on haplotype 1 of both samples and somatic on the tumor's) and
+    half decoys at sites that carry none: n MNVs (2-3 bases), n
+    replacements (REF and ALT of 2-8 bases, of unequal length), n ``<*>``
+    (``none``) records, n inversions and n tandem duplications of
+    ``sv_len`` bases (log-uniform; ``<INV>`` / ``<DUP>`` with END), and
+    max(n // 4, 1) inversions written as groups of four BND records
+    (SVTYPE=BND, MATEID, EVENT).  A read across an SV junction carries a
+    soft clip (:func:`_split_alignment`); one inside an inversion aligns to
+    the other strand.
+
+    ``ratchet=n``: what moves the alignment-property maxima during a tumor
+    preprocess (``max_del_cigar_len``, ``max_ins_cigar_len``,
+    ``frac_max_softclip``) beyond what ``estimate`` finds on the normal: n
+    somatic indels of 20-60 bases in the second half of the contig, n decoy
+    indels of 15-60 bases anywhere, 4n tumor reads in the second half with
+    a soft clip of 55-75 bases, and 4n normal reads with a clip of 5-15
+    bases (so that the normal's estimate has a soft-clip fraction at all).
+
+    ``methylation=n``: 5mC MM / ML tags on every forward-strand read at each
+    C of a reference CpG (half of the CpGs methylated), and n ``<METH>``
+    candidates at CpGs that ``candidates/methylation.py`` finds, half of
+    them methylated, half not.
+
     Returns {"fasta", "tumor", "normal", "candidates", "n_candidates",
     "reads": {sample: n}, "truth": {"germline", "somatic", "decoy", "snv":
     0-based VCF positions}}; the homopolymer world's truth also holds
-    "in_run", the positions of the indels inside runs."""
+    "in_run", the positions of the indels inside runs, and the options'
+    "kinds": {kind: {"germline", "somatic", "decoy"}: positions} (for
+    methylation: "methylated" and "decoy"; the ratchet's indels under
+    "ratchet")."""
     from pathlib import Path
 
     rng = np.random.default_rng(seed)
@@ -673,8 +912,18 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
     n_total = n_indel + n_snv
     gap = max(30, min(300, (genome_len - 1000) // (2 * max(n_total, 1))))
     slots = np.arange(500, genome_len - 500, gap)
+    extra = bool(kinds or ratchet or methylation)
+    krng = np.random.default_rng([seed, 2]) if extra else None
+    sv_events, sv_rows, zones, kind_truth = {"germline": [], "somatic": []}, [], None, {}
+    if kinds:
+        sv_events, sv_rows, zones, kind_truth = _plan_kinds(
+            krng, ref, chrom, genome_len, kinds, sv_len)
+        inside = ((slots[:, None] >= zones[:, 0]) & (slots[:, None] < zones[:, 1])).any(1)
+        slots = slots[~inside]
     if len(slots) < n_total:
         raise ValueError(f"{n_total} variants do not fit in {genome_len} bases")
+    if ratchet and gap < 80:
+        raise ValueError("the ratchet's 60-base indels need slots 80 bases apart")
     pos = np.sort(rng.choice(slots, n_total, replace=False))
     role = rng.permutation(
         np.repeat(np.arange(4), [n_germline, n_somatic, n_decoy, n_snv])
@@ -704,36 +953,156 @@ def synth_preprocess_world(out_dir, seed=0, genome_len=2_000_000, coverage=30.0,
             ev = (p, "ins", ln, ins)
             rows.append((p, ref[p : p + 1].tobytes(), ref[p : p + 1].tobytes() + ins))
         events[r].append(ev)
-    germ = sorted(events[0] + events[3])
-    haps = {
-        "normal": (_haplotype(ref, []), _haplotype(ref, germ)),
-        "tumor": (_haplotype(ref, []), _haplotype(ref, sorted(germ + events[1]))),
-    }
+    rows = [(p, rb.decode(), ab.decode(), ".", ".") for p, rb, ab in rows]
     fasta = out / "ref.fa"
     with open(fasta, "w") as f:
         f.write(f">{chrom}\n")
         text = ref.tobytes().decode("ascii")
         f.writelines(text[i : i + 80] + "\n" for i in range(0, genome_len, 80))
+    clips, meth, mrng = {"normal": [], "tumor": []}, None, None
+    if extra:
+        free = np.setdiff1d(slots, pos)
+        events[0] += sv_events["germline"]
+        events[1] += sv_events["somatic"]
+        rows += sv_rows
+        small = _plan_small_kinds(krng, ref, free, genome_len, kinds, ratchet)
+        for r, evs in small["events"].items():
+            events[r] += evs
+        rows += small["rows"]
+        kind_truth.update(small["truth"])
+        if ratchet:
+            clips["tumor"].append((krng, 4 * ratchet, 55, 75, False, genome_len // 2))
+            clips["normal"].append((krng, 4 * ratchet, 5, 15, True, 0))
+        if methylation:
+            mrng = np.random.default_rng([seed, 3])
+            meth, meth_rows, kind_truth["methylation"] = _plan_methylation(
+                krng, fasta, len(ref), methylation, zones,
+                np.array(sorted(r[0] for r in rows)))
+            rows += meth_rows
+        rows.sort(key=lambda r: r[0])
+    germ = sorted(events[0] + events[3])
+    haps = {
+        "normal": (_haplotype(ref, []), _haplotype(ref, germ)),
+        "tumor": (_haplotype(ref, []), _haplotype(ref, sorted(germ + events[1]))),
+    }
     reads = {}
     for sample in ("normal", "tumor"):
         reads[sample] = _simulate_library(
             out / f"{sample}.bam", chrom, genome_len, haps[sample], rng,
             coverage, read_len, insert_mean, insert_sd, base_error, slip_rng=hrng,
+            clips=clips[sample], meth=meth, meth_rng=mrng,
         )
     cand = out / "candidates.vcf"
     with open(cand, "w") as f:
         f.write("##fileformat=VCFv4.2\n"
-                f"##contig=<ID={chrom},length={genome_len}>\n"
-                "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
-        for p, rb, ab in rows:  # rows follow pos, which is sorted
-            f.write(f"{chrom}\t{p + 1}\t.\t{rb.decode()}\t{ab.decode()}\t.\t.\t.\n")
+                f"##contig=<ID={chrom},length={genome_len}>\n")
+        if kinds:
+            f.writelines(f'##INFO=<ID={k},Number={n},Type={ty},Description="{k}">\n'
+                         for k, n, ty in (("SVTYPE", 1, "String"), ("END", 1, "Integer"),
+                                          ("MATEID", ".", "String"), ("EVENT", 1, "String")))
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for p, rb, ab, rid, info in rows:  # rows follow pos
+            f.write(f"{chrom}\t{p + 1}\t{rid}\t{rb}\t{ab}\t.\t.\t{info}\n")
     names = ("germline", "somatic", "decoy", "snv")
     truth = {names[r]: pos[role == r] for r in range(4)}
     if homopolymer:
         truth["in_run"] = pos[in_run]
+    if extra:
+        truth["kinds"] = kind_truth
     return {"fasta": str(fasta), "tumor": str(out / "tumor.bam"),
             "normal": str(out / "normal.bam"), "candidates": str(cand),
-            "n_candidates": n_total, "reads": reads, "truth": truth}
+            "n_candidates": len(rows), "reads": reads, "truth": truth}
+
+
+def _plan_small_kinds(krng, ref, free, genome_len, kinds, ratchet):
+    """MNVs, replacements and ``<*>`` records (``kinds`` each), and the
+    ratchet's long indels (``ratchet`` somatic ones in the second half of
+    the contig, ``ratchet`` decoys anywhere), at the free slots.  Returns
+    {"events": {role: [...]}, "rows": [...], "truth": {...}}."""
+    events, rows, truth = {0: [], 1: []}, [], {}
+    n_long = 2 * ratchet
+    if len(free) < 3 * kinds + n_long:
+        raise ValueError("the other kinds do not fit between the indels")
+    late = free[free >= genome_len // 2]
+    if len(late) < ratchet:
+        raise ValueError("the ratchet's indels do not fit in the second half")
+    long_som = np.sort(krng.choice(late, ratchet, replace=False))
+    rest = np.setdiff1d(free, long_som)
+    at = krng.permutation(rest)[: 3 * kinds + ratchet]
+    n_half = kinds // 2
+    for k, kind in enumerate(("mnv", "replacement", "none")):
+        sites = at[k * kinds : (k + 1) * kinds].tolist()
+        truth[kind] = {"germline": [], "somatic": [], "decoy": []}
+        for i, p in enumerate(sites):
+            planted = kind != "none" and i < n_half
+            role = ("germline" if i % 2 == 0 else "somatic") if planted else "decoy"
+            truth[kind][role].append(p)
+            if kind == "none":
+                rows.append((p, chr(ref[p]), "<*>", ".", "."))
+                continue
+            if kind == "mnv":
+                m = int(krng.integers(2, 4))
+                alt = _random_bases_unlike(krng, ref[p : p + m]).tobytes()
+                ev = (p, "mnv", m, alt)
+                rb, ab = ref[p : p + m].tobytes(), alt
+            else:
+                dl, il = krng.choice(np.arange(1, 8), 2, replace=False).tolist()
+                tail = _ACGT[krng.integers(0, 4, il)].tobytes()
+                ev = (p, "rep", dl, tail)
+                rb, ab = ref[p : p + 1 + dl].tobytes(), ref[p : p + 1].tobytes() + tail
+            rows.append((p, rb.decode(), ab.decode(), ".", "."))
+            if planted:
+                events[0 if role == "germline" else 1].append(ev)
+    truth["ratchet"] = {"somatic": long_som.tolist(), "decoy": []}
+    long_decoy = at[3 * kinds :]
+    for p, r in [(p, 1) for p in long_som.tolist()] + [(p, 2) for p in long_decoy.tolist()]:
+        ln = int(krng.integers(20 if r == 1 else 15, 61))
+        if krng.random() < 0.5:
+            ev = (p, "del", ln, b"")
+            rb, ab = ref[p : p + 1 + ln].tobytes(), ref[p : p + 1].tobytes()
+        else:
+            ins = _ACGT[krng.integers(0, 4, ln)].tobytes()
+            ev = (p, "ins", ln, ins)
+            rb, ab = ref[p : p + 1].tobytes(), ref[p : p + 1].tobytes() + ins
+        rows.append((p, rb.decode(), ab.decode(), ".", "."))
+        if r == 1:
+            events[1].append(ev)
+        else:
+            truth["ratchet"]["decoy"].append(p)
+    return {"events": events, "rows": rows, "truth": truth}
+
+
+def _plan_methylation(krng, fasta, ref_len, n, zones, taken):
+    """The methylation state of every CpG (half methylated) and ``n``
+    ``<METH>`` candidates at CpGs that ``candidates.methylation`` finds in
+    the world's reference, outside the SV zones and at least 10 bases from
+    any other candidate; half of them methylated.  Returns (state per
+    reference base: -1 no CpG, 0, 1; rows; truth)."""
+    from .candidates.methylation import find_candidates
+    from .io.vcf import open_variant_file
+
+    cpg_vcf = fasta.parent / "cpg.vcf"
+    find_candidates(str(fasta), str(cpg_vcf))
+    cpg = np.array([r.pos for r in open_variant_file(str(cpg_vcf))], np.int64)
+    meth = np.full(ref_len, -1, np.int8)
+    meth[cpg] = krng.random(len(cpg)) < 0.5
+    ok = np.ones(len(cpg), dtype=bool)
+    if zones is not None:
+        ok &= ~((cpg[:, None] >= zones[:, 0]) & (cpg[:, None] < zones[:, 1])).any(1)
+    k = np.searchsorted(taken, cpg)
+    near = np.minimum(np.abs(cpg - taken[np.clip(k - 1, 0, len(taken) - 1)]),
+                      np.abs(taken[np.clip(k, 0, len(taken) - 1)] - cpg))
+    ok &= near >= 10
+    if ok.sum() < n:
+        raise ValueError(f"{n} methylation candidates do not fit")
+    sites = np.sort(krng.choice(cpg[ok], n, replace=False))
+    state = np.zeros(n, np.int8)
+    state[: n // 2] = 1
+    state = krng.permutation(state)
+    meth[sites] = state
+    rows = [(p, "C", "<METH>", ".", ".") for p in sites.tolist()]
+    truth = {"methylated": sites[state == 1].tolist(), "decoy": sites[state == 0].tolist()}
+    return meth, rows, truth
 
 
 def _write_synth_sample(path, name, variants, vaf, rng, min_depth, max_depth):

@@ -15,13 +15,30 @@
         --events E ... --fdr A --output VCF
     python -m varlociraptor_tpu_torch estimate contamination --sample OBS \
         --contaminant OBS [--output TSV] [--device cuda|cpu]
+    python -m varlociraptor_tpu_torch call variants generic ... \
+        --testcase-locus CHROM:POS --testcase-prefix DIR [--testcase-anonymous]
+    python -m varlociraptor_tpu_torch filter-calls posterior-odds CALLS \
+        --events E ... --odds LEVEL --output VCF
+    python -m varlociraptor_tpu_torch estimate mutational-burden CALLS \
+        --events E ... --sample S ... [--mode curve|hist|multibar|table]
+    python -m varlociraptor_tpu_torch decode-phred [CALLS] [--output VCF]
+    python -m varlociraptor_tpu_torch genotype [CALLS] [--output VCF]
+    python -m varlociraptor_tpu_torch methylation-candidates REF OUTPUT \
+        [--motif CG,CHG,CHH,GATC]
+    python -m varlociraptor_tpu_torch plot scatter CALLS --sample-x S \
+        --sample-y S ...
+    python -m varlociraptor_tpu_torch plot variant-calling-prior \
+        --scenario YAML --contig C --sample S
 
 The flags follow ``varlociraptor_tpu/cli.py`` for these commands.  The
 device of the pair-HMM (preprocess), of the posterior engine (call variants,
 estimate contamination) and of the CNV Viterbi (call cnvs) defaults to
 ``cuda``; asking for it without a card is an error, never a silent fall back
 to the CPU.  Observation files are the port's own (``.obs``, ``.jsonl``) or
-the reference's v15 BCF/VCF, which are read record by record.  ``preprocess --pairhmm-mode homopolymer``
+the reference's v15 BCF/VCF, which are read record by record.  A testcase
+captured with ``--testcase-*`` replays through
+``varlociraptor_tpu_torch.testcase.Testcase(DIR).run(device=...)``; the
+other commands run on the host.  ``preprocess --pairhmm-mode homopolymer``
 runs the positional-gap kernel K4; ``preprocess --threads N`` runs N worker
 processes, each with its pair-HMM on the same device.
 """
@@ -29,6 +46,7 @@ processes, each with its pair-HMM on the same device.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -109,6 +127,9 @@ def build_parser():
         cg.add_argument(f"--{flag}", action="store_true")
     cg.add_argument("--full-prior", action="store_true")
     cg.add_argument("--resolution", type=float, default=0.01)
+    cg.add_argument("--testcase-locus", default=None, help="CHROM:POS or 'all'")
+    cg.add_argument("--testcase-prefix", default=None)
+    cg.add_argument("--testcase-anonymous", action="store_true")
 
     tn = cv_sub.add_parser("tumor-normal")
     tn.add_argument("--tumor", required=True)
@@ -149,6 +170,13 @@ def build_parser():
                      choices=["local-strict", "global-strict", "local-smart", "global-smart"])
     fdr.add_argument("--retain-artifacts", action="store_true")
 
+    odds = fc_sub.add_parser("posterior-odds")
+    odds.add_argument("calls")
+    odds.add_argument("--output", required=True)
+    odds.add_argument("--events", nargs="+", required=True)
+    odds.add_argument("--odds", required=True,
+                      choices=["none", "barely", "positive", "strong", "very-strong"])
+
     # ---- estimate ----
     est = sub.add_parser("estimate", help="estimations")
     est_sub = est.add_subparsers(dest="what", required=True)
@@ -167,6 +195,51 @@ def build_parser():
     ct.add_argument("--prior-estimate", type=float, default=None)
     ct.add_argument("--prior-considered-cells", type=int, default=None)
     ct.add_argument("--resolution", type=int, default=100)
+
+    mb = est_sub.add_parser("mutational-burden")
+    mb.add_argument("calls", nargs="?", default=None)
+    mb.add_argument("--events", nargs="+", required=True)
+    mb.add_argument("--sample", nargs="+", required=True,
+                    help="sample name(s); several allowed with --mode multibar")
+    mb.add_argument("--coding-genome-size", type=float, default=3e7)
+    mb.add_argument("--mode", default="curve",
+                    choices=["curve", "hist", "multibar", "table"])
+    mb.add_argument("--cutoff", type=float, default=0.2,
+                    help="minimal VAF for the multibar plot (--vaf-cutoff)")
+    mb.add_argument("--vaf-cutoff", type=float, dest="cutoff",
+                    help="reference flag name for --cutoff")
+
+    # ---- conversions ----
+    dp = sub.add_parser("decode-phred", help="PHRED PROB_* -> linear probabilities")
+    dp.add_argument("calls", nargs="?", default=None)
+    dp.add_argument("--output", default=None)
+
+    gt = sub.add_parser("genotype", help="derive GT from AF")
+    gt.add_argument("calls", nargs="?", default=None)
+    gt.add_argument("--output", default=None)
+
+    # ---- methylation candidates ----
+    mc = sub.add_parser("methylation-candidates")
+    mc.add_argument("reference")
+    mc.add_argument("output")
+    mc.add_argument(
+        "--motif",
+        default="CG",
+        help="comma-separated list of CG, CHG, CHH, GATC (cli.rs:128-132)",
+    )
+
+    # ---- plot (vega-lite JSON to stdout) ----
+    pl = sub.add_parser("plot")
+    pl_sub = pl.add_subparsers(dest="what", required=True)
+    sc = pl_sub.add_parser("scatter")
+    sc.add_argument("calls")
+    sc.add_argument("--sample-x", required=True)
+    # nargs="+" matches the reference's multi-sample -y (cli.rs:403-404)
+    sc.add_argument("--sample-y", required=True, nargs="+")
+    vp = pl_sub.add_parser("variant-calling-prior")
+    vp.add_argument("--scenario", required=True)
+    vp.add_argument("--contig", required=True)
+    vp.add_argument("--sample", required=True)
 
     for sp in (pv, cg, tn, cn, ct):
         sp.add_argument(
@@ -218,6 +291,20 @@ def run(argv=None):
     if args.command == "estimate" and args.what == "contamination":
         return _estimate_contamination(args)
 
+    if args.command == "estimate" and args.what == "mutational-burden":
+        from .estimation.mutational_burden import collect_estimates
+
+        spec = collect_estimates(
+            args.calls,
+            events=args.events,
+            sample=args.sample,
+            coding_genome_size=args.coding_genome_size,
+            mode=args.mode,
+            cutoff=args.cutoff,
+        )
+        print(spec["table"] if args.mode == "table" else json.dumps(spec, indent=1))
+        return 0
+
     if args.command == "estimate":
         from .estimation.alignment_properties import estimate
         from .io.bam import BamReader
@@ -259,6 +346,8 @@ def run(argv=None):
         if args.mode == "generic":
             scenario = Scenario.from_path(args.scenario)
             obs = dict(kv.split("=", 1) for kv in args.obs)
+            if args.testcase_prefix and args.testcase_locus:
+                _capture_testcase(args, obs)
             options = CallOptions(
                 omit_strand_bias=args.omit_strand_bias,
                 omit_read_orientation_bias=args.omit_read_orientation_bias,
@@ -275,6 +364,13 @@ def run(argv=None):
             options = CallOptions()
         n = call_generic(scenario, obs, args.output, options, device=args.device)
         print(f"called {n} records", file=sys.stderr)
+        return 0
+
+    if args.command == "filter-calls" and args.method == "posterior-odds":
+        from .filtration.posterior_odds import filter_by_odds
+
+        n = filter_by_odds(args.calls, args.output, args.events, args.odds)
+        print(f"kept {n} records", file=sys.stderr)
         return 0
 
     if args.command == "filter-calls":
@@ -295,7 +391,74 @@ def run(argv=None):
         print(f"kept {n} records", file=sys.stderr)
         return 0
 
+    if args.command == "decode-phred":
+        from .conversion.decode_phred import decode_phred
+
+        decode_phred(args.calls, args.output)
+        return 0
+
+    if args.command == "genotype":
+        from .conversion.genotype import genotype
+
+        genotype(args.calls, args.output)
+        return 0
+
+    if args.command == "methylation-candidates":
+        from .candidates.methylation import find_candidates
+
+        n = find_candidates(args.reference, args.output, motif=args.motif)
+        print(f"found {n} candidates", file=sys.stderr)
+        return 0
+
+    if args.command == "plot" and args.what == "variant-calling-prior":
+        from .estimation.prior_plot import plot_variant_calling_prior
+        from .grammar.scenario import Scenario
+
+        spec = plot_variant_calling_prior(
+            Scenario.from_path(args.scenario), args.contig, args.sample
+        )
+        print(json.dumps(spec, indent=2))
+        return 0
+
+    if args.command == "plot":
+        from .estimation.sample_variants import vaf_scatter
+
+        print(json.dumps(vaf_scatter(args.calls, args.sample_x, args.sample_y)))
+        return 0
+
     raise SystemExit(f"unknown command {args.command}")
+
+
+def _capture_testcase(args, obs):
+    """Capture a replayable testcase (testcase/builder.rs) from the BAM,
+    reference and candidate paths recorded in each observation file's
+    header."""
+    from .calling.observations import ObservationReader
+    from .testcase_builder import build_testcase
+
+    sample_bams, sample_opts = {}, {}
+    ref_path = candidates = None
+    for name, path in obs.items():
+        reader = ObservationReader(path)
+        hdr = reader.header.get("options", {})
+        reader.close()
+        sample_bams[name] = hdr["bam"]
+        ref_path = hdr["reference"]
+        candidates = hdr.get("candidates")
+        sample_opts[name] = json.dumps({"Preprocess": {"kind": {"Variants": hdr}}})
+    if candidates is None:
+        raise SystemExit("observation files lack candidate path; rerun preprocess")
+    build_testcase(
+        args.testcase_prefix,
+        args.testcase_locus,
+        candidates,
+        ref_path,
+        sample_bams,
+        scenario_path=args.scenario,
+        sample_options=sample_opts,
+        anonymize=args.testcase_anonymous,
+    )
+    print(f"testcase written to {args.testcase_prefix}", file=sys.stderr)
 
 
 def _estimate_contamination(args):

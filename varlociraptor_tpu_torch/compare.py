@@ -262,9 +262,23 @@ def _read_observations(path, n=None):
             np.concatenate([np.asarray(p[3], dtype=object) for p in parts]))
 
 
+def _of_kinds(obs, kinds):
+    """The records of ``kinds`` (VariantInfo.kind) of ``_read_observations``'s
+    (variants, counts, columns, raw depth), with their reads."""
+    from .calling.observations import ObsColumns
+
+    variants, counts, cols, depth = obs
+    keep = np.array([v.kind in kinds for v in variants], dtype=bool)
+    rows = np.repeat(keep, counts)
+    return ([v for v, k in zip(variants, keep) if k], counts[keep],
+            ObsColumns(cols.f16[rows], cols.u8[rows], cols.hil[rows], cols.third[rows],
+                       cols.frag[rows]), depth[keep])
+
+
 def compare_observation_files(ref_path, got_path, n=None, rel_tol=OBS_REL_TOL,
-                              floor=OBS_FLOOR):
-    """Two observation files of the same candidates (first n records).
+                              floor=OBS_FLOOR, kinds=None):
+    """Two observation files of the same candidates (first n records; with
+    ``kinds``, only the records of those variant kinds).
 
     Returns (problems, info): records, read counts and every field the
     pair-HMM does not touch must be identical; prob_alt, prob_ref and
@@ -274,8 +288,11 @@ def compare_observation_files(ref_path, got_path, n=None, rel_tol=OBS_REL_TOL,
     number of read values that passed only by the floor."""
     from .ops.compact_obs import CF_PA, CF_PME, CF_PR
 
-    va, ca, ka, da = _read_observations(ref_path, n)
-    vb, cb, kb, db = _read_observations(got_path, n)
+    a, b = _read_observations(ref_path, n), _read_observations(got_path, n)
+    if kinds is not None:
+        a, b = _of_kinds(a, kinds), _of_kinds(b, kinds)
+    va, ca, ka, da = a
+    vb, cb, kb, db = b
     problems = []
     key = lambda v: (v.chrom, v.pos, v.kind, v.ref_allele, v.alt_allele, v.svlen)  # noqa: E731
     if [key(v) for v in va] != [key(v) for v in vb]:

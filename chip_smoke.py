@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
-with nvcc (sm_90a, one process per source), then runs eleven phases, each
-printing one JSON line.  It refuses every import of ``jax``, ``jaxlib`` and
+with nvcc (sm_90a, one process per source), then runs twelve phases, each
+printing one JSON line (with ``script_s``, the seconds since the start).  It refuses every import of ``jax``, ``jaxlib`` and
 the JAX package ``varlociraptor_tpu``, in its own process by an import hook
 and in every Python process it starts through
 ``scripts/torch_no_jax/sitecustomize.py`` on ``PYTHONPATH``:
@@ -151,9 +151,29 @@ and in every Python process it starts through
                        ``Testcase.run`` on the card and on the CPU (the
                        VCFs compared; K1 and, for the SV and replacement
                        kinds, K3 launch in the card's replays).
+  (j) sharded          locus sharding (``parallel/``): (j1)
+                       ``dryrun_multichip`` over every card (the sharded
+                       engine, the sharded ``call_generic`` byte-identical to
+                       the single-device panels route and within 1.1e-4 of the
+                       wire route, ``control_fdr_sharded``); (j2) the engine
+                       cell's inputs (SHARDED_LOCI loci, depth 64) in two
+                       shards on cuda:0 through ``run_sharded``, every output
+                       against ``engine.run`` on the card, K1's launches per
+                       shard; (j3) SHARDED_RANKS ranks over gloo sharing the
+                       card (torchrun's environment, the no-JAX guard), each
+                       with its half of j2's batch and its region half of
+                       phase (c)'s files through ``call_generic(mesh=...)``
+                       and ``control_fdr_sharded``: the rows against j2's
+                       single run, the calls against phase (c)'s, the kept
+                       sets against phase (c)'s FDR; each rank's seconds from
+                       spawn, loci/s, K1 launches and gather seconds; (j4)
+                       ``all_gather_rows`` of float64 rows over NCCL in a
+                       world of one rank on cuda:0, bit for bit.  NCCL
+                       between two cards is not run: one card here.
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
-launches counted in phases (c), (f), (h) and (i), K2-K4 with those counted in
+launches counted in phases (c), (f), (h), (i) and (j) (the ranks' own counts
+included), K2-K4 with those counted in
 phase (d)'s preprocess steps, phase (e)'s, phase (g)'s workers and phase
 (i)'s preprocess and replays (each also by phase, ``launches_by_phase``; K2
 and K3 take the larger error of phases (a') and (i)); each with its time, its
@@ -235,6 +255,9 @@ K1_OPS_PER_CELL = 6
 OPS_PER_CELL = {"exact": 7, "general": 16, "positional": 19}
 
 
+_START = time.perf_counter()
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -275,6 +298,8 @@ def k1_roofline(args):
 
 
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1922,6 +1947,327 @@ def phase_kinds_and_testcases(work):
     return res, launches, worst
 
 
+# phase (j): locus sharding.  (j2) the engine cell's inputs in two shards on
+# cuda:0; (j3) SHARDED_RANKS ranks over gloo sharing the one card, each with
+# its region half of phase (c)'s files and its half of j2's batch; (j4) NCCL
+# in a world of one rank.  No machine this script runs on has a second card
+# for NCCL between ranks.
+SHARDED_LOCI = 32768
+J2_REPEATS = 3
+SHARDED_RANKS = 2
+RANK_TIMEOUT_S = 600
+NCCL_ACROSS_CARDS = ("not run: one card on this machine; NCCL between ranks "
+                     "needs a card per rank")
+
+
+@contextlib.contextmanager
+def shard_launches(per_shard):
+    """K1's launches per shard: inside this block every call of the
+    engine's ``run`` / ``run_compact`` is one shard of ``run_sharded`` /
+    ``run_sharded_compact``, and appends the launches it made to
+    ``per_shard``."""
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops.posterior import PosteriorEngine
+
+    saved = {name: getattr(PosteriorEngine, name)
+             for name in ("run", "run_compact")}
+
+    def counted(fn):
+        def run(self, *args, **kwargs):
+            n0 = k1.ll_classes.launches
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                per_shard.append(k1.ll_classes.launches - n0)
+        return run
+
+    for name, fn in saved.items():
+        setattr(PosteriorEngine, name, counted(fn))
+    try:
+        yield per_shard
+    finally:
+        for name, fn in saved.items():
+            setattr(PosteriorEngine, name, fn)
+
+
+def sharded_rank(spec):
+    """One rank of phase (j3), in a process of its own started with
+    torchrun's environment: ``distributed_mesh(backend="gloo")`` (its shard
+    is the one card), its half of j2's batch through ``run_sharded`` (timed
+    after a warm-up run), its
+    region half of phase (c)'s files through ``call_generic(mesh=...)``,
+    ``control_fdr_sharded`` over its calls, and a timed gather of as many
+    float64 rows as it called.  Prints one ``RANK_REPORT`` JSON line."""
+    import os
+
+    entered = time.time()
+    sys.meta_path.insert(0, refuse_jax)
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from varlociraptor_tpu_torch import _build
+    from varlociraptor_tpu_torch.bench_utils import engine_inputs, tumor_normal_engine
+    from varlociraptor_tpu_torch.calling.call import CallOptions, call_generic
+    from varlociraptor_tpu_torch.filtration.fdr import control_fdr_sharded
+    from varlociraptor_tpu_torch.grammar.scenario import tumor_normal_scenario
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.parallel.sharding import (
+        all_gather_rows, distributed_mesh, run_sharded,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    rep = {"rank": rank, "entered_s": entered - spec["spawned"]}
+    device = spec["device"]
+    mesh = distributed_mesh(None if device == "cuda" else [device], backend="gloo")
+    if device == "cuda":
+        _build.load()
+    rep.update(ready_s=time.time() - spec["spawned"], backend=mesh.backend,
+               devices=[str(d) for d in mesh.devices], world_size=mesh.world_size)
+    _, engine = tumor_normal_engine(resolution=0.01, purity=0.75, device=device)
+    half = spec["loci"] // mesh.world_size
+    inputs = engine_inputs(engine, n_loci=spec["loci"], depth=64, seed=0)
+    local = [np.asarray(a)[rank * half:(rank + 1) * half] for a in inputs]
+    run_sharded(engine, mesh, *local)  # warm-up: first launches, allocator growth
+    per_shard = []
+    with shard_launches(per_shard):
+        k1.ll_classes.launches = 0  # main path
+        t0 = time.perf_counter()
+        out = run_sharded(engine, mesh, *local)
+        engine_s = time.perf_counter() - t0
+        rep.update(engine_s=engine_s, engine_loci_per_s=half / engine_s,
+                   engine_k1_launches=k1.ll_classes.launches,
+                   engine_k1_per_shard=list(per_shard))
+        per_shard.clear()
+        k1.ll_classes.launches = 0  # main path
+        obs = dict(zip(("tumor", "normal"), spec["obs"][rank]))
+        t0 = time.perf_counter()
+        n = call_generic(tumor_normal_scenario(0.75), obs, spec["calls"][rank],
+                         CallOptions(), mesh=mesh, device=device)
+        call_s = time.perf_counter() - t0
+    rep.update(call_loci=n, call_s=call_s, call_loci_per_s=n / call_s,
+               call_k1_launches=k1.ll_classes.launches, call_shards=len(per_shard),
+               call_k1_per_shard=sorted(set(per_shard)))
+    t0 = time.perf_counter()
+    rep["fdr_kept"] = control_fdr_sharded([spec["calls"][rank]], spec["kept"][rank],
+                                          ["somatic_tumor"], alpha=0.05, mesh=mesh)
+    rep["fdr_s"] = time.perf_counter() - t0
+    rows = np.random.default_rng(rank).standard_normal((n, 2))
+    t0 = time.perf_counter()
+    gathered = all_gather_rows(rows, mesh)
+    rep.update(gather_s=time.perf_counter() - t0, gather_rows=len(gathered))
+    np.savez(spec["out"][rank], **out)
+    loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED
+              and sys.modules[m] is not None]
+    rep.update(jax_modules=loaded, end_s=time.time() - spec["spawned"])
+    dist.destroy_process_group()
+    print("RANK_REPORT " + json.dumps(rep), flush=True)
+
+
+def run_ranks(spec, work):
+    """Start SHARDED_RANKS ranks of :func:`sharded_rank` on the card with
+    torchrun's environment; their reports in rank order.  A rank that fails
+    or outlasts RANK_TIMEOUT_S fails the phase; every rank is ended."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.sharded_rank(json.loads(sys.argv[2]))")
+    spec = {**spec, "spawned": time.time()}
+    procs, logs = [], []
+    try:
+        for rank in range(SHARDED_RANKS):
+            env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": port,
+                   "WORLD_SIZE": str(SHARDED_RANKS), "RANK": str(rank),
+                   "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(SHARDED_RANKS)}
+            logs.append(work / f"rank{rank}.log")
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(ROOT), json.dumps(spec)],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.time() + RANK_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"sharded: a rank ran past {RANK_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        text = log.read_text()
+        line = next((ln for ln in text.splitlines() if ln.startswith("RANK_REPORT ")), None)
+        if p.returncode != 0 or line is None:
+            raise PhaseError(f"sharded: rank {rank} returned {p.returncode}:\n{text[-3000:]}")
+        reports.append(json.loads(line[len("RANK_REPORT "):]))
+    return reports
+
+
+def nccl_one_rank():
+    """(j4): a world of one rank over NCCL on cuda:0 (torchrun's environment
+    set here): ``all_gather_rows`` of float64 rows whose float32 rounding
+    differs must come back bit for bit."""
+    import os
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from varlociraptor_tpu_torch.parallel.sharding import all_gather_rows, distributed_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": port, "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh = distributed_mesh()
+        rows = np.random.default_rng(4).standard_normal((100_000, 2)) / 3.0
+        if np.array_equal(rows.astype(np.float32).astype(np.float64), rows):
+            raise PhaseError("sharded: the NCCL rows do not test float64")
+        all_gather_rows(rows[:10], mesh)  # warm-up: the communicator
+        t0 = time.perf_counter()
+        got = all_gather_rows(rows, mesh)
+        secs = time.perf_counter() - t0
+        if mesh.backend != "nccl" or got.dtype != np.float64 or got.tobytes() != rows.tobytes():
+            raise PhaseError(f"sharded: NCCL all_gather_rows over {mesh.backend} is not bit-exact")
+        return {"backend": mesh.backend, "devices": [str(d) for d in mesh.devices],
+                "rows": len(rows), "seconds": secs, "bit_exact": True}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_sharded(work, engine, cli_files, device="cuda"):
+    """(j): ``dryrun_multichip`` over every card (j1), the engine cell's
+    inputs in two shards on cuda:0 against ``engine.run`` (j2), two ranks
+    over gloo on the one card against j2's single run and phase (c)'s call
+    and FDR (j3), and NCCL in a world of one rank (j4).  ``device="cpu"``
+    rehearses it (j1 on two CPU shards, the ranks on the CPU)."""
+    import numpy as np
+    import torch
+
+    from varlociraptor_tpu_torch.bench_utils import engine_inputs, region_shards
+    from varlociraptor_tpu_torch.compare import compare_outputs, compare_vcf_text, vcf_record_keys
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.parallel.dryrun import dryrun_multichip
+    from varlociraptor_tpu_torch.parallel.sharding import locus_mesh, run_sharded
+
+    res = {"phase": "sharded", "nccl_across_cards": NCCL_ACROSS_CARDS}
+    launches = {}
+
+    # (j1) the dry run over every card of the machine
+    k1.ll_classes.launches = 0  # main path
+    t0 = time.perf_counter()
+    try:
+        res["dryrun"] = dryrun_multichip(
+            torch.cuda.device_count() if device == "cuda" else 2, device, work / "dryrun")
+    except AssertionError as e:
+        raise PhaseError(f"sharded: dryrun_multichip: {e}") from None
+    res["dryrun"]["seconds"] = time.perf_counter() - t0
+    launches["dryrun"] = k1.ll_classes.launches
+
+    # (j2) one process, two shards on cuda:0
+    # each timed as phase (b) times the engine: best of J2_REPEATS after a
+    # warm-up call, every output copied to the host
+    inputs = engine_inputs(engine, n_loci=SHARDED_LOCI, depth=64, seed=0)
+    mesh = locus_mesh([f"{device}:0" if device == "cuda" else device] * 2)
+    engine.run(*inputs)
+    single_s = []
+    for _ in range(J2_REPEATS):
+        t0 = time.perf_counter()
+        single = engine.run(*inputs)
+        single_s.append(time.perf_counter() - t0)
+    run_sharded(engine, mesh, *inputs)
+    sharded_s, per_shard = [], []
+    with shard_launches(per_shard):
+        k1.ll_classes.launches = 0  # main path
+        for _ in range(J2_REPEATS):
+            t0 = time.perf_counter()
+            out = run_sharded(engine, mesh, *inputs)
+            sharded_s.append(time.perf_counter() - t0)
+    launches["two_shards"] = k1.ll_classes.launches
+    problems, info = compare_outputs(single, out)
+    if problems:
+        raise PhaseError("sharded: two shards vs engine.run: " + "; ".join(problems[:5]))
+    if per_shard != [2, 2] * J2_REPEATS:
+        raise PhaseError(f"sharded: K1 launched {per_shard} times per shard, not twice in each")
+    res["two_shards"] = {
+        "n_loci": SHARDED_LOCI, "depth": 64, "resolution": 0.01,
+        "devices": [str(d) for d in mesh.devices], "seconds": sharded_s,
+        "loci_per_s": SHARDED_LOCI / min(sharded_s), "single_seconds": single_s,
+        "single_loci_per_s": SHARDED_LOCI / min(single_s),
+        "k1_launches_per_shard": per_shard[:2],
+        "vs_single": {"max_rel": info["max_rel"], "af_max": info["af_max"],
+                      "topk_swaps": len(info["topk_swaps"])},
+    }
+
+    # (j3) ranks over gloo on the one card: region halves of phase (c)
+    whole = Path(cli_files["calls"]).read_text()
+    n_c = len(vcf_record_keys(whole))
+    half = n_c // SHARDED_RANKS
+    if half * SHARDED_RANKS != n_c:
+        raise PhaseError(f"sharded: {n_c} loci do not split into {SHARDED_RANKS} equal halves")
+    t0 = time.perf_counter()
+    shards = region_shards([cli_files["tumor"], cli_files["normal"]], work / "regions",
+                           [half] * SHARDED_RANKS)
+    split_s = time.perf_counter() - t0
+    spec = {"loci": SHARDED_LOCI, "device": device, "obs": shards,
+            "calls": [str(work / f"calls_rank{r}.vcf") for r in range(SHARDED_RANKS)],
+            "kept": [str(work / f"kept_rank{r}.vcf") for r in range(SHARDED_RANKS)],
+            "out": [str(work / f"engine_rank{r}.npz") for r in range(SHARDED_RANKS)]}
+    t0 = time.perf_counter()
+    reports = run_ranks(spec, work)
+    ranks_s = time.perf_counter() - t0
+    for rep in reports:
+        if rep["jax_modules"] or rep["backend"] != "gloo":
+            raise PhaseError(f"sharded: rank {rep['rank']}: {rep}")
+        if rep["engine_k1_per_shard"] != [2] or rep["call_k1_launches"] == 0 \
+                or rep["call_loci"] != half:
+            raise PhaseError(f"sharded: rank {rep['rank']} launched K1 {rep}")
+    parts = [dict(np.load(p)) for p in spec["out"]]
+    merged = {k: np.concatenate([part[k] for part in parts]) for k in parts[0]}
+    problems, info = compare_outputs(single, merged)
+    if problems:
+        raise PhaseError("sharded: ranks' rows vs the single run: " + "; ".join(problems[:5]))
+    texts = [Path(p).read_text() for p in spec["calls"]]
+    joined = texts[0] + "".join(ln for t in texts[1:] for ln in t.splitlines(keepends=True)
+                                if not ln.startswith("#"))
+    problems, swapped = compare_vcf_text(whole, joined)
+    if problems:
+        raise PhaseError("sharded: ranks' calls vs phase (c): " + "; ".join(problems[:3]))
+    kept = [k for p in spec["kept"] for k in vcf_record_keys(Path(p).read_text())]
+    kept_c = vcf_record_keys(Path(cli_files["kept"]).read_text())
+    if kept != kept_c or not kept:
+        raise PhaseError(f"sharded: the ranks kept {len(kept)} records, control_fdr on "
+                         f"phase (c)'s calls {len(kept_c)}")
+    res["ranks"] = {"world_size": SHARDED_RANKS, "backend": "gloo", "split_s": split_s,
+                    "seconds": ranks_s, "loci_per_rank": half, "reports": reports,
+                    "engine_vs_single": {"max_rel": info["max_rel"], "af_max": info["af_max"]},
+                    "calls_vs_single_topk_swapped_lines": len(swapped),
+                    "kept": len(kept)}
+    launches["ranks"] = sum(r["engine_k1_launches"] + r["call_k1_launches"] for r in reports)
+
+    # (j4) NCCL, one rank
+    res["nccl_one_rank"] = nccl_one_rank()
+    res["k1_launches"] = launches
+    return res, sum(launches.values())
+
+
 def main():
     import os
 
@@ -1991,6 +2337,10 @@ def main():
     (work / "kinds").mkdir()
     i, kinds_launches, kinds_worst = phase_kinds_and_testcases(work / "kinds")
     emit(i)
+    (work / "sharded").mkdir()
+    j, sharded_launches = phase_sharded(
+        work / "sharded", engine, {**cli_files, "kept": str(work / "somatic.fdr.vcf")})
+    emit(j)
     by_phase = {kind: {"preprocess": hmm_launches[kind], "homopolymer": hp_launches[kind],
                        "preprocess_threads": thread_launches[kind],
                        "kinds_and_testcases": kinds_launches[kind]}
@@ -2009,10 +2359,12 @@ def main():
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": launches + mode_launches + legacy_launches + kinds_launches["ll_classes"],
+        "launches": (launches + mode_launches + legacy_launches + kinds_launches["ll_classes"]
+                     + sharded_launches),
         "launches_by_phase": {"cli": launches, "engine_modes": mode_launches,
                               "legacy_and_estimates": legacy_launches,
-                              "kinds_and_testcases": kinds_launches["ll_classes"]},
+                              "kinds_and_testcases": kinds_launches["ll_classes"],
+                              "sharded": sharded_launches},
         "max_abs_err": max([a["max_abs_err"]] + [c["max_abs_err"] for c in k1_legacy]),
         **timing(bench), "library_ms": None,
     }] + [{

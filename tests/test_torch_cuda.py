@@ -19,7 +19,10 @@ card equal to the CPU's; the all-kinds world (bench_utils.KINDS_WORLD)
 preprocessed on the card against the CPU kind by kind, each kind's first K2 /
 K3 launch of another panel than 128 x 128 against the plain kernel, and a
 testcase of each kind replayed on the card against the CPU (PHRED and AF
-within 1e-3 * max(1, |x|), chip_smoke.py's WORLD_VCF_TOL for such loci).
+within 1e-3 * max(1, |x|), chip_smoke.py's WORLD_VCF_TOL for such loci);
+the sharded engine on two shards of one card against engine.run, and the
+sharded call against the single-device panels route (byte for byte) and
+the CPU's sharded call.
 """
 
 import math
@@ -144,6 +147,52 @@ def test_engine_on_the_card_matches_the_cpu(card):
     assert k1.ll_classes.launches == n0 + 2
     ref = cpu.run(*inputs)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
+    assert not problems, problems[:5]
+
+
+def test_sharded_engine_on_the_card_matches_run(card):
+    """run_sharded over two shards on one card: K1 twice in each shard, every
+    output equal to engine.run on the card; all_gather_rows in one process
+    returns float64 rows through the card bit for bit."""
+    from varlociraptor_tpu_torch.parallel.sharding import (
+        all_gather_rows, locus_mesh, run_sharded,
+    )
+
+    _, gpu = tumor_normal_engine(resolution=0.01, device=card)
+    inputs = engine_inputs(gpu, n_loci=97, depth=32, seed=7)
+    ref = gpu.run(*inputs)
+    mesh = locus_mesh([card] * 2)
+    n0 = k1.ll_classes.launches
+    got = run_sharded(gpu, mesh, *inputs)
+    assert k1.ll_classes.launches == n0 + 4
+    problems, _ = compare_outputs(ref, got, grid_values=gpu.grid.values)
+    assert not problems, problems[:5]
+    rows = np.random.default_rng(1).standard_normal((13, 2)) / 3.0
+    assert all_gather_rows(rows, mesh).tobytes() == rows.tobytes()
+
+
+def test_sharded_call_on_the_card_equals_the_panels_route(card, tmp_path, monkeypatch):
+    """call_generic(mesh=...) on the card equals the single-device panels
+    route byte for byte on one shard, and the CPU's sharded call within
+    compare_vcf_text."""
+    from varlociraptor_tpu_torch.bench_utils import synth_observation_files
+    from varlociraptor_tpu_torch.calling import fastcall
+    from varlociraptor_tpu_torch.calling.call import call_generic
+    from varlociraptor_tpu_torch.compare import compare_vcf_text
+    from varlociraptor_tpu_torch.grammar.scenario import tumor_normal_scenario
+    from varlociraptor_tpu_torch.parallel.sharding import locus_mesh
+
+    tumor, normal, _ = synth_observation_files(tmp_path, n_loci=300, seed=4)
+    obs = {"tumor": tumor, "normal": normal}
+    monkeypatch.delenv("VLT_LEGACY_CALL", raising=False)
+    sc = tumor_normal_scenario(0.75)
+    paths = {k: tmp_path / f"{k}.vcf" for k in ("mesh", "panels", "cpu")}
+    call_generic(sc, obs, str(paths["mesh"]), mesh=locus_mesh([card]), device=card)
+    call_generic(sc, obs, str(paths["cpu"]), mesh=locus_mesh(["cpu"] * 2), device="cpu")
+    monkeypatch.setattr(fastcall.ColumnarCaller, "wire_mode", "panels")
+    call_generic(sc, obs, str(paths["panels"]), device=card)
+    assert paths["mesh"].read_bytes() == paths["panels"].read_bytes()
+    problems, _ = compare_vcf_text(paths["cpu"].read_text(), paths["mesh"].read_text())
     assert not problems, problems[:5]
 
 

@@ -5,11 +5,11 @@ modules, so it carries its own copy of every host module that the call stage
 and preprocess reach (and ``utils.logprob``, whose original imports
 ``jax.numpy`` at module top).  Each copy must equal its original except for
 import lines (imports within the port only), the top-level functions it
-leaves out on purpose (the ``jnp_*`` helpers, the sharded FDR), the
+leaves out on purpose (the ``jnp_*`` helpers), the
 top-level functions named in ``PORTED`` (rewritten for torch and a device,
 held to the JAX package by their own tests), the lines named in
 ``REWRITTEN`` (where the port's native host library lives, what a module's
-docstring says of its device code, the reading of BGZF BCF observation
+docstring says of its device code, the default mesh of the sharded FDR, the reading of BGZF BCF observation
 files, the ``device`` of the testcase runner, the port's own package name in
 a docstring and a logger name), and paths into the Rust reference's
 sources, which the copies cite from the reference repository's root
@@ -38,7 +38,7 @@ COPIES = {
     "calling/observations.py": set(),
     "calling/ref_obs.py": set(),
     "calling/columnar.py": set(),
-    "filtration/fdr.py": {"control_fdr_sharded"},
+    "filtration/fdr.py": set(),
     "evidence/realignment.py": set(),
     "evidence/variants.py": set(),
     "evidence/extraction.py": set(),
@@ -123,6 +123,12 @@ REWRITTEN = {
             "    def check(self, workdir=None, pairhmm_mode=None):",
         "        records, sample_order = self.run(workdir, pairhmm_mode=pairhmm_mode, device=device)":
             "        records, sample_order = self.run(workdir, pairhmm_mode=pairhmm_mode)",
+    },
+    # the sharded FDR's default mesh: one shard per visible card (the
+    # original's ``locus_mesh(jax.devices())``; its ``import jax`` is an
+    # import line)
+    "filtration/fdr.py": {
+        "            mesh = locus_mesh()": "            mesh = locus_mesh(jax.devices())",
     },
     # the port's own package names where the original names its own
     "testcase_builder.py": {

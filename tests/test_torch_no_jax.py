@@ -11,7 +11,10 @@ back from CUDA to the CPU.
   hop params, and ``--threads 2``: two spawned workers) on a tiny synthetic
   BAM world, with ``--device cpu``; then ``filter-calls posterior-odds``,
   ``decode-phred``, ``genotype`` and ``methylation-candidates``, and a
-  testcase captured from the world and replayed on the CPU;
+  testcase captured from the world and replayed on the CPU; the sharded
+  dry run (``parallel/dryrun.py``) on 4 CPU shards, and two spawned ranks
+  over gloo filtering region halves of the calls with
+  ``control_fdr_sharded``;
 * ``--device cuda`` on a machine without a usable card raises, for ``call
   variants``, ``estimate contamination``, ``call cnvs`` and ``preprocess``;
 * no file of the port (nor chip_smoke.py and the port's scripts) imports
@@ -126,6 +129,36 @@ assert cli.run(["call", "variants", "generic", "--scenario", work + "/scenario.y
 from varlociraptor_tpu_torch.testcase import Testcase
 replayed, samples = Testcase(work + "/testcase").run(work + "/replay", device="cpu")
 print("TESTCASE", len(replayed), samples)
+from varlociraptor_tpu_torch.parallel.dryrun import dryrun_multichip
+print("DRYRUN", dryrun_multichip(4, "cpu", work + "/dryrun")["fdr_kept"])
+# two gloo ranks (spawned, the guard inherited): global FDR over region halves
+import os, socket, subprocess
+recs = open(work + "/calls.vcf").read().splitlines(keepends=True)
+head = [l for l in recs if l.startswith("#")]
+body = [l for l in recs if not l.startswith("#")]
+for r, part in enumerate((body[:20], body[20:])):
+    open(work + f"/region{r}.vcf", "w").write("".join(head + part))
+rank_code = (
+    "import os, sys; sys.path.insert(0, sys.argv[1]); r = int(os.environ['RANK'])\n"
+    "from varlociraptor_tpu_torch.parallel.sharding import distributed_mesh\n"
+    "from varlociraptor_tpu_torch.filtration.fdr import control_fdr_sharded\n"
+    "mesh = distributed_mesh(['cpu'] * 2)\n"
+    "n = control_fdr_sharded([sys.argv[2] + f'/region{r}.vcf'], sys.argv[2] + f'/kept{r}.vcf',"
+    " ['somatic_tumor'], alpha=0.05, mesh=mesh)\n"
+    "assert sys.modules['jax'] is sys.modules['varlociraptor_tpu'] is None\n"
+    "import torch.distributed as dist; dist.destroy_process_group()\n"
+    "print('KEPT', n)\n")
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+procs = [subprocess.Popen(
+    [sys.executable, "-c", rank_code, sys.argv[1], work],
+    env={**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": port,
+         "WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r)},
+    stdout=subprocess.PIPE, text=True) for r in (0, 1)]
+kept = [int(p.communicate(timeout=120)[0].split("KEPT ")[1]) for p in procs]
+assert all(p.returncode == 0 for p in procs)
+print("RANKS_KEPT", sum(kept))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "varlociraptor_tpu")
                 and sys.modules[m] is not None)
@@ -155,6 +188,11 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert 0 < counts[0] <= 40 and counts[1:3] == [40, 40] and counts[3] > 300
     assert "TESTCASE 1 ['normal', 'tumor']" in proc.stdout
     assert (tmp_path / "kept.vcf").exists()
+    # the sharded dry run, and two spawned gloo ranks whose collective FDR
+    # keeps what the single-file filter kept
+    assert "DRYRUN " in proc.stdout
+    kept = sum(not line.startswith("#") for line in open(tmp_path / "kept.vcf"))
+    assert f"RANKS_KEPT {kept}\n" in proc.stdout
 
 
 def test_cuda_without_a_card_raises(tmp_path, monkeypatch):

@@ -6,8 +6,8 @@
 * run() on bench_utils.engine_inputs at two grid resolutions;
 * run_wire() on the same uint8 input buffer, with and without the
   --full-prior ``pj`` section;
-* the call stage's plug-in hooks and reference observation files against
-  JAX, and its refusal of the device mesh, which is not ported yet.
+* the call stage's plug-in hooks, reference observation files and the
+  device mesh against JAX.
 
 Tolerances (varlociraptor_tpu_torch/compare.py): posteriors / marginal /
 joint 1e-4 * max(1, |x|); af 1e-4 (the MAP parabola amplifies one-ulp float32
@@ -213,13 +213,18 @@ def _ref_obs_file(path):
     "mode", ["call_processor", "candidate_filter", "reference_observations", "mesh"]
 )
 def test_modes_outside_the_slice_raise(mode, tmp_path):
-    """The call stage's plug-in hooks and reference observation files (the
-    legacy per-WorkItem caller and the record-by-record reader) run and agree
-    with JAX on a one-SNV reference observation VCF; only the device mesh is
-    still refused (ROADMAP A11)."""
+    """The call stage's plug-in hooks, reference observation files (the
+    legacy per-WorkItem caller and the record-by-record reader) and the
+    device mesh (8 shards on each side) run and agree with JAX on a one-SNV
+    reference observation VCF.  The test's name dates from when the mesh was
+    refused."""
     import os
 
+    import jax
+
     from varlociraptor_tpu.calling import call as jcall
+    from varlociraptor_tpu.parallel.sharding import locus_mesh as j_locus_mesh
+    from varlociraptor_tpu_torch.parallel.sharding import locus_mesh
     from varlociraptor_tpu.grammar.scenario import Scenario as JScenario
     from varlociraptor_tpu_torch.calling.call import call_generic
     from varlociraptor_tpu_torch.compare import compare_vcf_text
@@ -230,11 +235,6 @@ def test_modes_outside_the_slice_raise(mode, tmp_path):
         "events": {"present": "sample:]0.0,1.0]"},
     }
     obs = {"sample": _ref_obs_file(tmp_path / "sample.obs.vcf")}
-    if mode == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            call_generic(Scenario(doc), obs, str(tmp_path / "calls.vcf"),
-                         device="cpu", mesh=object())
-        return
     seen = {"jax": [], "torch": []}
 
     def hooks(side):
@@ -243,6 +243,9 @@ def test_modes_outside_the_slice_raise(mode, tmp_path):
         if mode == "candidate_filter":
             return {"candidate_filter": lambda item: seen[side].append(
                 (item.index, item.flags, item.snv)) or True}
+        if mode == "mesh":
+            return {"mesh": j_locus_mesh(jax.devices()) if side == "jax"
+                    else locus_mesh(["cpu"] * 8)}
         return {}
 
     assert "VLT_LEGACY_CALL" not in os.environ
@@ -251,7 +254,8 @@ def test_modes_outside_the_slice_raise(mode, tmp_path):
     assert call_generic(Scenario(doc), obs, str(got), device="cpu", **hooks("torch")) == 1
     problems, _ = compare_vcf_text(ref.read_text(), got.read_text())
     assert not problems, problems
-    assert len(seen["torch"]) == len(seen["jax"]) == (0 if mode == "reference_observations" else 1)
+    assert len(seen["torch"]) == len(seen["jax"]) == (
+        1 if mode in ("call_processor", "candidate_filter") else 0)
     if mode == "candidate_filter":
         assert seen["torch"] == seen["jax"] == [(0, seen["jax"][0][1], ("A", "T"))]
     if mode == "call_processor":

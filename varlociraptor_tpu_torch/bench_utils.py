@@ -1203,6 +1203,38 @@ def synth_observation_files(out_dir, n_loci=1000, seed=0, purity=0.75,
     return paths[0], paths[1], truth
 
 
+def region_shards(paths, out_dir, sizes):
+    """Split observation files into consecutive region shards: shard k holds
+    the next ``sizes[k]`` loci of every file (one contig), rewritten with the
+    port's ObservationReader / ObservationWriter under ``out_dir/shard<k>/``
+    with the file's own name.  Returns one list of paths per shard, in the
+    order of ``paths``."""
+    from pathlib import Path
+
+    from .calling.observations import ObservationReader, ObservationWriter
+
+    readers = [ObservationReader(str(p)) for p in paths]
+    shards = []
+    try:
+        for k, n in enumerate(sizes):
+            d = Path(out_dir) / f"shard{k}"
+            d.mkdir(parents=True, exist_ok=True)
+            shard = []
+            for p, r in zip(paths, readers):
+                variants, counts, cols, dp = r.read_window(n)
+                if len(variants) != n:
+                    raise ValueError(f"{p}: shard {k} has {len(variants)} of {n} loci")
+                dst = d / Path(p).name
+                with ObservationWriter(str(dst), r.sample_name) as w:
+                    w.write_window(variants, counts, cols, dp)
+                shard.append(str(dst))
+            shards.append(shard)
+    finally:
+        for r in readers:
+            r.close()
+    return shards
+
+
 def synth_sample_observation_files(out_dir, sample_names, n_loci=200, seed=0,
                                    min_depth=20, max_depth=64, chrom="chr1"):
     """One observation file per sample of a scenario, for ``n_loci`` SNV

@@ -9,7 +9,8 @@ writes earlier ones.  The legacy per-WorkItem path (``GenericCaller
 need Pileup objects (``call_processor``, ``candidate_filter``: contamination
 estimation) and ``VLT_LEGACY_CALL=1``.  Observation files without columnar
 windows (the reference's v15 BCF/VCF) are read record by record on either
-path.  The device mesh is not ported yet.
+path.  With a device mesh (``parallel.sharding.LocusMesh``) both paths split
+each engine batch over the mesh's shards.
 """
 
 from __future__ import annotations
@@ -138,10 +139,13 @@ class GenericCaller:
         scenario: Scenario,
         options: CallOptions | None = None,
         device="cuda",
+        mesh=None,
     ):
         self.scenario = scenario
         self.options = options or CallOptions()
         self.device = resolve_device(device)
+        # device mesh for locus-data-parallel engine evaluation
+        self.mesh = mesh
         self._engines = {}
         self._events_cache = {}
         self._prior_cache = {}
@@ -398,18 +402,27 @@ class GenericCaller:
             if ln_prior_joint is not None:
                 ln_prior_joint = _pad(ln_prior_joint)
 
-        out = engine.run(
-            feats,
-            mask,
-            bias_alt,
-            bias_ref,
-            bias_any,
-            combo_active,
-            branch_gates,
-            ln_prior_absent,
-            ln_prior_joint=ln_prior_joint,
-            n_artifact_active=n_artifact_active,
-        )
+        if self.mesh is not None and ln_prior_joint is None:
+            from ..parallel.sharding import run_sharded
+
+            out = run_sharded(
+                engine, self.mesh, feats, mask, bias_alt, bias_ref,
+                bias_any, combo_active, branch_gates, ln_prior_absent,
+                n_artifact_active=n_artifact_active,
+            )
+        else:
+            out = engine.run(
+                feats,
+                mask,
+                bias_alt,
+                bias_ref,
+                bias_any,
+                combo_active,
+                branch_gates,
+                ln_prior_absent,
+                ln_prior_joint=ln_prior_joint,
+                n_artifact_active=n_artifact_active,
+            )
         if L < Lp:
             out = {
                 k: (v[:L] if hasattr(v, "shape") and v.shape[:1] == (Lp,) else v)
@@ -502,12 +515,11 @@ def call_generic(
     (the reference's CandidateFilter plug-in trait, calling.rs:964-1020; used
     by contamination estimation).  Either hook, or ``VLT_LEGACY_CALL=1``,
     selects the legacy per-WorkItem path.  ``device``: where the posterior
-    engine runs ("cuda" or "cpu").  Returns number of records called."""
+    engine is built ("cuda" or "cpu").  ``mesh``: optional
+    ``parallel.sharding.LocusMesh`` for locus-data-parallel engine
+    evaluation (a multi-process mesh: this process's own loci).  Returns
+    number of records called."""
     options = options or CallOptions()
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-device sharding) is not ported yet: ROADMAP A11"
-        )
     if not any(name in observation_paths for name in scenario.sample_names):
         raise ValueError("no observation files given")
     use_columnar = (
@@ -518,9 +530,9 @@ def call_generic(
     if use_columnar:
         from .fastcall import ColumnarCaller
 
-        caller = ColumnarCaller(scenario, options, device=device)
+        caller = ColumnarCaller(scenario, options, device=device, mesh=mesh)
     else:
-        caller = GenericCaller(scenario, options, device=device)
+        caller = GenericCaller(scenario, options, device=device, mesh=mesh)
 
     sample_names = scenario.sample_names
     event_names = [n for n in scenario.event_formulas.keys() if n != "absent"]

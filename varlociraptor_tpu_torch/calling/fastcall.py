@@ -5,6 +5,9 @@ Same semantics as the reference's per-WorkItem path
 ``ColumnarBatch`` + ``PosteriorEngine.run_wire``: per-locus Python work is
 replaced by O(N_obs) numpy reductions, and each window ships to the engine's
 device as one uint8 buffer (flat observation rows + per-locus metadata).
+With a device mesh, or ``VLT_WIRE=panels``, a window ships as dense padded
+panels instead (``PosteriorEngine.run_compact``; over the mesh
+``parallel.sharding.run_sharded_compact``).
 
 Output records are built by a vectorized formatter (integer-coded audit
 strings counted with np.unique instead of per-read Counters).
@@ -120,7 +123,8 @@ class PendingWindow:
         """Materialize all bucket outputs and merge in locus order."""
         out = None
         for idx, Lb, pending in self.groups:
-            sub = self.engine.fetch_run(pending)
+            # a bucket sharded over a mesh arrives fetched
+            sub = pending if isinstance(pending, dict) else self.engine.fetch_run(pending)
             if out is None:
                 out = {
                     k: np.zeros((self.L,) + v.shape[1:], dtype=v.dtype)
@@ -133,6 +137,14 @@ class PendingWindow:
 
 class ColumnarCaller(GenericCaller):
     """GenericCaller with the vectorized columnar batch path."""
+
+    # "wire" (default) ships ONE uint8 buffer per window (flat observation
+    # rows + per-locus metadata) and rebuilds the panels on the device by
+    # gather (engine.run_wire).  "panels" ships the padded [L,S,D] panels
+    # (engine.run_compact): the single-device run of the program a mesh
+    # shards, which the mesh path is held to byte for byte.  A mesh always
+    # takes the panels.  VLT_WIRE=panels opts in (differential testing).
+    wire_mode = __import__("os").environ.get("VLT_WIRE", "wire")
 
     def call_window_cb(self, cb: ColumnarBatch, contig, sync=True):
         """Run a columnar window through the engine.  Returns
@@ -201,15 +213,36 @@ class ColumnarCaller(GenericCaller):
             if ln_prior_joint is not None:
                 ln_prior_joint[li] = hit[1]
 
-        # ---- STATIC two-bucket depth routing: one "bulk" bucket at D=64
-        # (covers WGS-typical pileups) and one rare "deep" bucket at the
-        # pow2 of the window's deepest pileup (>= 128).  Few distinct shapes
-        # keep the per-shape host work (and later graph capture) cheap.
+        if self.wire_mode not in ("wire", "panels"):
+            raise NotImplementedError(
+                f"VLT_WIRE={self.wire_mode!r}: the port has the 'wire' and "
+                "'panels' routes ('flat' is not ported: ROADMAP A9)"
+            )
+        use_wire = self.mesh is None and self.wire_mode == "wire"
         d_l = cb.counts.max(axis=1) if cb.counts.size else np.ones(L, int)
         d_l = np.maximum(d_l, 1)
-        deep_d = 1 << int(np.ceil(np.log2(max(int(d_l.max()), 2))))
-        deep_d = max(deep_d, 128)
-        dbucket = np.where(d_l <= 64, 64, deep_d).astype(np.int64)
+        if use_wire:
+            # ---- STATIC two-bucket depth routing: one "bulk" bucket at
+            # D=64 (covers WGS-typical pileups) and one rare "deep" bucket
+            # at the pow2 of the window's deepest pileup (>= 128).  Few
+            # distinct shapes keep the per-shape host work (and later graph
+            # capture) cheap.
+            deep_d = 1 << int(np.ceil(np.log2(max(int(d_l.max()), 2))))
+            deep_d = max(deep_d, 128)
+            dbucket = np.where(d_l <= 64, 64, deep_d).astype(np.int64)
+        else:
+            # pow2 depth buckets (>= 16); sparsely populated ones merge
+            # upward, so that a few deep pileups do not pad the window
+            dbucket = np.left_shift(1, np.ceil(np.log2(d_l)).astype(np.int64))
+            dbucket = np.maximum(dbucket, 16)
+            uniq = np.unique(dbucket)
+            if len(uniq) > 1:
+                on_cpu = engine.device.type == "cpu"
+                thresh = max(64, L // 4) if on_cpu else max(64, L // 2)
+                for i, b in enumerate(uniq[:-1]):
+                    sel = dbucket == b
+                    if sel.sum() < thresh:
+                        dbucket[sel] = uniq[i + 1]
 
         groups = []
         counts_full = np.zeros((L, S), dtype=np.int64)
@@ -219,7 +252,7 @@ class ColumnarCaller(GenericCaller):
             depth = int(depth)
             idx = np.nonzero(dbucket == depth)[0]
             Lb = len(idx)
-            if depth > 64:
+            if use_wire and depth > 64:
                 # rare deep-pileup side bucket: small fixed locus axis
                 Lp = max(256, 1 << (Lb - 1).bit_length())
             elif getattr(self, "_seen_full_window", False):
@@ -237,7 +270,12 @@ class ColumnarCaller(GenericCaller):
             hal_b = has_alt_loci[idx]
             na_b = n_artifact_active[idx]
             pj_b = ln_prior_joint[idx] if ln_prior_joint is not None else None
-            f16f, u8f, hilf, rowf, counts = cb.pack_flat(depth, locus_idx=idx)
+            if use_wire:
+                f16f, u8f, hilf, rowf, counts = cb.pack_flat(depth, locus_idx=idx)
+            else:
+                obs_f16, obs_u8, hil, mask, counts = cb.pack_panels(
+                    depth, locus_idx=idx
+                )
             counts_full[idx] = counts
             if Lb < Lp:
                 def _pad(a, fill=0):
@@ -245,6 +283,11 @@ class ColumnarCaller(GenericCaller):
                     padded[:Lb] = a
                     return padded
 
+                if not use_wire:
+                    obs_f16 = _pad(obs_f16)
+                    obs_u8 = _pad(obs_u8)
+                    hil = _pad(hil, HOMOPOLYMER_NONE)
+                    mask = _pad(mask)
                 sm = _pad(sm)
                 sa = _pad(sa)
                 sa[Lb:, 0] = True
@@ -255,6 +298,24 @@ class ColumnarCaller(GenericCaller):
                 na_b = _pad(na_b, 1.0)
                 if pj_b is not None:
                     pj_b = _pad(pj_b)
+            if not use_wire:
+                # a mesh shards every window but a --full-prior one (which
+                # carries the joint prior), as in JAX
+                if self.mesh is not None and pj_b is None:
+                    from ..parallel.sharding import run_sharded_compact
+
+                    pending = run_sharded_compact(
+                        engine, self.mesh, obs_f16, obs_u8, hil, mask, sm, sa,
+                        bg, pa_b, fr_b, hal_b, n_artifact_active=na_b,
+                    )
+                else:
+                    pending = engine.run_compact(
+                        obs_f16, obs_u8, hil, mask, sm, sa, bg, pa_b, fr_b,
+                        hal_b, ln_prior_joint=pj_b, n_artifact_active=na_b,
+                        fetch=False,
+                    )
+                groups.append((idx, Lb, pending))
+                continue
             # bucket the flat obs axis (pow2 and 1.5*pow2 steps, >=4096)
             N = len(rowf)
             p2 = 1 << max(0, (N - 1)).bit_length()

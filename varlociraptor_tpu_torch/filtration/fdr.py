@@ -266,3 +266,101 @@ def control_fdr(
                 n += 1
     return n
 
+
+def control_fdr_sharded(
+    in_vcfs: list,
+    out_vcf,
+    events: list[str],
+    alpha: float,
+    mesh=None,
+    vartype: str | None = None,
+    min_len=None,
+    max_len=None,
+    smart: bool = False,
+    smart_retain_artifacts: bool = False,
+) -> int:
+    """Global FDR over region-sharded call files with a collective merge.
+
+    The genome-wide probability distribution (fdr.rs:116-144) is the one
+    statistic global FDR needs across shards: each shard contributes its
+    pass-1 (prob, event-hash) rows, the mesh ``all_gather`` replicates the
+    full distribution (parallel.sharding.all_gather_rows), and the
+    threshold search runs identically everywhere.  Shards are then filtered
+    independently with the shared threshold — output equals single-file
+    ``control_fdr`` on the concatenation.
+    """
+    from ..parallel.sharding import all_gather_rows, locus_mesh
+
+    readers = [open_variant_file(p) for p in in_vcfs]
+    tags = [f"PROB_{e.upper()}" for e in events]
+    header_text = "\n".join(readers[0].header_lines)
+    present = [t for t in tags if f"ID={t}" in header_text]
+    if header_text and not present:
+        raise ValueError(
+            f"none of the events {events} are present in {in_vcfs[0]}"
+        )
+    tags = present or tags
+    ln_alpha = math.log(alpha) if alpha > 0 else LOG_ZERO
+
+    threshold = None
+    if alpha < 1.0:
+        dist_tags = _dist_tags(tags, smart, smart_retain_artifacts)
+        local_rows = np.concatenate(
+            [
+                _collect_dist_rows(
+                    r.records(), dist_tags, vartype, min_len, max_len
+                )
+                for r in readers
+            ],
+            axis=0,
+        )
+        if mesh is None:
+            mesh = locus_mesh()
+        rows = all_gather_rows(local_rows, mesh)
+        threshold = _threshold_from_rows(rows, smart, ln_alpha)
+
+    n = 0
+    bnd_decisions = {}
+    tags_q = list(tags)
+    absent_tags = ["PROB_ABSENT"]
+    if smart and smart_retain_artifacts:
+        tags_q.append("PROB_ARTIFACT")
+    else:
+        absent_tags.append("PROB_ARTIFACT")
+
+    with open_variant_writer(
+        out_vcf,
+        sample_names=readers[0].sample_names,
+        header_lines=readers[0].header_lines,
+    ) as w:
+        for reader in readers:
+            for rec in reader.records():
+                if not _record_vartype_match(rec, vartype, min_len, max_len):
+                    continue
+                ev = rec.info_get("EVENT")
+                keep = bnd_decisions.get(ev) if ev and ev is not True else None
+                if keep is None:
+                    prob_events = tags_prob_sum(rec, tags_q)
+                    if smart:
+                        pa = tags_prob_sum(rec, absent_tags)
+                        p = np_ln_one_minus_exp(pa) if pa is not None else None
+                    else:
+                        p = prob_events
+                    if p is not None and threshold is not None:
+                        keep = p > threshold or math.isclose(
+                            p, threshold, rel_tol=1e-9, abs_tol=1e-12
+                        )
+                    elif p is not None and threshold is None:
+                        keep = True
+                    else:
+                        keep = False
+                    if smart:
+                        keep = keep and (
+                            prob_events is not None and prob_events > PROB_05
+                        )
+                    if ev and ev is not True:
+                        bnd_decisions[ev] = keep
+                if keep:
+                    w.write(rec)
+                    n += 1
+    return n

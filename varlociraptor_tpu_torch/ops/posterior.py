@@ -1664,6 +1664,56 @@ class PosteriorEngine:
             n_artifact_active=n_art,
         )
 
+    def run_compact(
+        self,
+        obs_f16,
+        obs_u8,
+        hil,
+        mask,
+        slot_map,
+        combo_active,
+        branch_gates,
+        ln_prior_absent,
+        fwd_rate,
+        has_alt_loci,
+        ln_prior_joint=None,
+        n_artifact_active=None,
+        fetch=True,
+    ):
+        """:meth:`run` from the dense compact encoding (ops.compact_obs):
+        obs_f16 [L,S,D,N_CF] f16; obs_u8 [L,S,D,N_CU] u8; hil [L,S,D] i8;
+        mask [L,S,D] bool; slot_map [L,Bc] int (FULL_COMBOS index per combo
+        slot); combo_active [L,Bc] bool; fwd_rate [L] f32; has_alt_loci [L]
+        bool; the rest as in :meth:`run`.  The single-device program of the
+        columnar caller's ``wire_mode = "panels"``; fetch=False returns a
+        pending handle for :meth:`fetch_run`."""
+        f32 = torch.float32
+        L = np.asarray(obs_f16).shape[0]
+        if n_artifact_active is None:
+            n_art = torch.full(
+                (L,), float(self.n_artifact_combos or 1), device=self.device
+            )
+        else:
+            n_art = self._as_tensor(n_artifact_active, f32)
+        m = self._as_tensor(mask, torch.bool)
+        with torch.no_grad():
+            out = self._compact_core(
+                self._as_tensor(obs_f16, torch.float16),
+                self._as_tensor(obs_u8, torch.uint8),
+                self._as_tensor(hil, torch.int8),
+                m,
+                self._as_tensor(slot_map, torch.int64),
+                self._as_tensor(combo_active, torch.bool),
+                self._as_tensor(branch_gates, torch.bool),
+                self._as_tensor(ln_prior_absent, f32),
+                self._as_tensor(fwd_rate, f32),
+                self._as_tensor(has_alt_loci, torch.bool),
+                None if ln_prior_joint is None else self._as_tensor(ln_prior_joint, f32),
+                n_art,
+            )
+            pending = self._start_fetch(self._device_outputs(out, m), L)
+        return self.fetch_run(pending) if fetch else pending
+
     # ------------------------------------------------------------------
     def _in_wire_spec(self, Np, L, D, Bc, pj_shape):
         """Section layout of the single uint8 input buffer (4-byte aligned

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``varlociraptor_tpu_torch/csrc``
-with nvcc (sm_90a, one process per source), then runs twelve phases, each
-printing one JSON line (with ``script_s``, the seconds since the start).  It refuses every import of ``jax``, ``jaxlib`` and
+with nvcc (sm_90a, one process per source), then runs phases (a) to (k), each
+printing one JSON line (phase (k) two; each with ``script_s``, the seconds
+since the start).  It refuses every import of ``jax``, ``jaxlib`` and
 the JAX package ``varlociraptor_tpu``, in its own process by an import hook
 and in every Python process it starts through
 ``scripts/torch_no_jax/sitecustomize.py`` on ``PYTHONPATH``:
@@ -47,7 +48,8 @@ and in every Python process it starts through
                        ``filter-calls control-fdr``; the first 2,000 loci are
                        re-called with ``--device cpu`` and the VCFs compared.
   (d) preprocess       a 2 Mb tumor/normal world (30x, 2x100 bp, 1,500 planted
-                       indels and 500 decoys) through ``estimate
+                       indels and 500 decoys; simulated in a process of its
+                       own while phases (a)-(c) run, as is (e)'s) through ``estimate
                        alignment-properties``, ``preprocess variants --device
                        cuda`` (both samples), a re-run of the first 200
                        normal candidates with the other gap model (so that K2
@@ -170,10 +172,36 @@ and in every Python process it starts through
                        ``all_gather_rows`` of float64 rows over NCCL in a
                        world of one rank on cuda:0, bit for bit.  NCCL
                        between two cards is not run: one card here.
+  (k) wavefront_vs_plain, wavefront_routes
+                       (k1) the wavefront kernel (csrc/pairhmm_wavefront.cu)
+                       of each flavour (banded, positional, hop-state)
+                       against its plain torch version on the card, at the
+                       main-path panel WAVEFRONT_MAIN_SHAPE without a band
+                       and with the realigner's band (semiglobal edit
+                       distance + 4), on the ragged _synth set, the edge
+                       sets of (a') and reads over 1023 bases (K23_TOL
+                       above FORWARD_FLOOR, -1e30 alike); the main-path
+                       sets timed with CUDA events beside their bound;
+                       (k2) ``preprocess variants --pairhmm-mode
+                       homopolymer --region`` under VLT_HOP_STATES=1 on
+                       the head of phase (e)'s candidates (HOP_REGION_LOCI),
+                       on the card and on the CPU, compared, loci/s; (k3)
+                       the same under VLT_PALLAS_PAIRHMM=0 on the head of
+                       phase (d)'s (BANDED_REGION_LOCI; the banded
+                       wavefront), and in homopolymer mode on (k2)'s region
+                       (its positional flavour); (k4) VLT_NATIVE_PAIRHMM=1
+                       on both regions: no pair-HMM kernel launches, the
+                       files agree with (k3)'s; (k5) ``call variants
+                       tumor-normal`` on phase (c)'s files through the flat
+                       wire (``ColumnarCaller.wire_mode = "flat"``, what
+                       VLT_WIRE=flat selects at import): the calls VCF byte
+                       for byte phase (c)'s, K1's launches counted.
 
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
-launches counted in phases (c), (f), (h), (i) and (j) (the ranks' own counts
-included), K2-K4 with those counted in
+launches counted in phases (c), (f), (h), (i), (j) (the ranks' own counts
+included) and (k5), the wavefront kernel by flavour with those of phase (k),
+its time at WAVEFRONT_MAIN_SHAPE (and with the band, ``banded``), K2-K4 with
+those counted in
 phase (d)'s preprocess steps, phase (e)'s, phase (g)'s workers and phase
 (i)'s preprocess and replays (each also by phase, ``launches_by_phase``; K2
 and K3 take the larger error of phases (a') and (i)); each with its time, its
@@ -928,8 +956,67 @@ def pairhmm_forwards():
             "positional": phc.positional_forward.forwards}
 
 
-def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
-                     n_decoy=500, n_rerun=200, n_cpu=192, device="cuda"):
+# builds a synth_preprocess_world in a process of its own: argv = (repo,
+# output directory, JSON keyword arguments); pickles the world's dict next to
+# its files and prints its seconds
+_WORLD_JOB = """
+import json, pickle, sys, time
+sys.path.insert(0, sys.argv[1])
+from varlociraptor_tpu_torch.bench_utils import synth_preprocess_world
+t0 = time.perf_counter()
+w = synth_preprocess_world(sys.argv[2], **json.loads(sys.argv[3]))
+with open(sys.argv[2] + "/world.pkl", "wb") as f:
+    pickle.dump(w, f)
+print(json.dumps({"seconds": time.perf_counter() - t0}))
+"""
+_JOBS = []  # the world processes started, stopped at exit
+
+
+class WorldJob:
+    """``synth_preprocess_world(out_dir, **kw)`` in a process of its own (the
+    no-JAX guard on its PYTHONPATH), started ahead of the phase that needs
+    the world, so that the host simulates its reads while the card phases
+    before it run.  The world is the one an in-process call builds: the
+    draws depend on the arguments alone."""
+
+    def __init__(self, out_dir, **kw):
+        self.out_dir, self.kw = Path(out_dir), kw
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _WORLD_JOB, str(ROOT), str(self.out_dir), json.dumps(kw)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _JOBS.append(self.proc)
+
+    def result(self, secs):
+        """The world's dict; ``secs`` gains the generation's seconds and the
+        wait for it."""
+        import pickle
+
+        t0 = time.perf_counter()
+        out, err = self.proc.communicate()
+        secs["world_wait"] = time.perf_counter() - t0
+        if self.proc.returncode != 0:
+            raise PhaseError(f"world job failed ({self.proc.returncode}): {err[-2000:]}")
+        secs["world"] = json.loads(out.strip().splitlines()[-1])["seconds"]
+        with open(self.out_dir / "world.pkl", "rb") as f:
+            return pickle.load(f)
+
+
+def stop_world_jobs():
+    for proc in _JOBS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+# phases (d)'s and (e)'s worlds (2 Mb, 2,000 candidates; (e)'s with
+# homopolymer=True)
+PREPROCESS_WORLD = dict(seed=0, genome_len=2_000_000, n_germline=1000, n_somatic=500,
+                        n_decoy=500)
+
+
+def phase_preprocess(work, world, n_rerun=200, n_cpu=192, device="cuda"):
+    """(d): estimate, preprocess and call on ``world`` (a ``WorldJob``)."""
     import json as _json
 
     import numpy as np
@@ -939,17 +1026,12 @@ def phase_preprocess(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
         GapParams,
     )
     from varlociraptor_tpu_torch.io import native
-    from varlociraptor_tpu_torch.bench_utils import synth_preprocess_world
 
     res = {"phase": "preprocess", "native_host_library": native.available()}
     secs = res["seconds"] = {}
-    t0 = time.perf_counter()
-    w = synth_preprocess_world(work / "world", seed=0, genome_len=genome_len,
-                               n_germline=n_germline, n_somatic=n_somatic,
-                               n_decoy=n_decoy)
-    secs["world"] = time.perf_counter() - t0
+    w = world.result(secs)
     n = w["n_candidates"]
-    res.update(genome_len=genome_len, candidates=n, reads=w["reads"])
+    res.update(genome_len=world.kw["genome_len"], candidates=n, reads=w["reads"])
 
     # 1. estimate on the normal BAM, then preprocess both samples on the card
     props_path = work / "props.json"
@@ -1004,25 +1086,19 @@ def serial_tumor(w, props_path, obs, forwards, secs):
             "forwards": forwards["tumor"], "seconds": secs["preprocess_tumor"]}
 
 
-def phase_homopolymer(work, genome_len=2_000_000, n_germline=1000, n_somatic=500,
-                      n_decoy=500, n_cpu=192, device="cuda"):
-    """(e): phase (d)'s pipeline on the homopolymer world, in the
-    homopolymer pair-HMM mode (K4 with the estimated hop params)."""
+def phase_homopolymer(work, world, n_cpu=192, device="cuda"):
+    """(e): phase (d)'s pipeline on the homopolymer world (a ``WorldJob``),
+    in the homopolymer pair-HMM mode (K4 with the estimated hop params)."""
     import json as _json
 
     import numpy as np
 
-    from varlociraptor_tpu_torch.bench_utils import synth_preprocess_world
 
     res = {"phase": "homopolymer"}
     secs = res["seconds"] = {}
-    t0 = time.perf_counter()
-    w = synth_preprocess_world(work / "world", seed=0, genome_len=genome_len,
-                               n_germline=n_germline, n_somatic=n_somatic,
-                               n_decoy=n_decoy, homopolymer=True)
-    secs["world"] = time.perf_counter() - t0
+    w = world.result(secs)
     n = w["n_candidates"]
-    res.update(genome_len=genome_len, candidates=n, reads=w["reads"],
+    res.update(genome_len=world.kw["genome_len"], candidates=n, reads=w["reads"],
                indels_in_runs=int(len(w["truth"]["in_run"])))
 
     # 1. estimate: hop params for every base, or K4 would not be reached
@@ -2268,6 +2344,302 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
     return res, sum(launches.values())
 
 
+WAVEFRONT_SOURCE = "varlociraptor_tpu_torch/csrc/pairhmm_wavefront.cu"
+# the XLA wavefronts the kernel replaces (no Pallas kernel): by flavour
+WAVEFRONT_REPLACES = {"banded": "varlociraptor_tpu/ops/pairhmm.py:55",
+                      "positional": "varlociraptor_tpu/ops/pairhmm.py:193",
+                      "hop": "varlociraptor_tpu/ops/pairhmm.py:340"}
+# phase (k1)'s timed shape: the main path's 128 x 128 panels of ~4,400
+# items of 100-base reads (PERF.md §6, K2-K4's launches)
+WAVEFRONT_MAIN_SHAPE = (4400, 128, 100)
+# float32 operations per computed cell of the plain versions
+# (ops/pairhmm_wavefront.py), each exp / log / log1p, add, sub, max and abs
+# counted 1 (no FMA): lse2 6, lse3 12; banded M 23 (3 adds, lse3, lse2,
+# the emission), D 8, I 15; positional adds t_mm (6) and t_dm (4) per
+# cell; hop adds the HX / HY terms of M (14), HX (8) and HY (8)
+WAVEFRONT_OPS_PER_CELL = {"banded": 46, "positional": 56, "hop": 76}
+WAVEFRONT_FLAVOURS = ("banded", "positional", "hop")
+
+
+def wavefront_sets():
+    """(name, alleles, reads, quals, max_dists) of phase (k1): the main-path
+    shape without a band and with the realigner's band (semiglobal edit
+    distance + EDIT_BAND), the ragged _synth set, the edge sets of (a'),
+    and reads over 1023 bases (two columns per thread)."""
+    import numpy as np
+
+    from varlociraptor_tpu_torch.bench_utils import (
+        pairhmm_edge_items,
+        pairhmm_items,
+        pairhmm_shape_items,
+        semiglobal_distances,
+    )
+    from varlociraptor_tpu_torch.evidence.edit_distance import EDIT_BAND
+
+    def banded(items):
+        return [int(d) + EDIT_BAND for d in semiglobal_distances(items[0], items[1])]
+
+    main = pairhmm_shape_items(*WAVEFRONT_MAIN_SHAPE, seed=7)
+    synth = pairhmm_items(21, 3)
+    rng = np.random.default_rng(11)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    long_a = [bytes(acgt[rng.integers(0, 4, n)].tobytes()) for n in (1300, 1100)]
+    long_r = [np.frombuffer(long_a[0][100:1200], np.uint8),
+              np.frombuffer(long_a[1][500:600], np.uint8)]
+    long_items = (long_a, long_r, [np.full(len(r), 30, np.uint8) for r in long_r])
+    sets = [("main", *main, None), ("main_banded", *main, banded(main)),
+            ("synth_ragged", *synth, None), ("synth_ragged_banded", *synth, banded(synth)),
+            ("long_read", *long_items, banded(long_items))]
+    sets += [(name, *items, None) for name, items in pairhmm_edge_items().items()
+             if name != "long_allele"]
+    return sets
+
+
+def wavefront_case(flavour, name, args, timer):
+    """The wavefront kernel against its plain version on the same device
+    tensors: -1e30 items alike, the rest within K23_TOL x max(1, |x|) above
+    FORWARD_FLOOR; the main-path sets timed with their bound."""
+    import numpy as np
+    import torch
+
+    from varlociraptor_tpu_torch.ops import pairhmm_wavefront as pwf
+
+    fn = pwf.WRAPPERS[flavour]
+    g = fn(*args).cpu().numpy()
+    torch.cuda.synchronize()
+    stats = {"cells": 0}
+    p = pwf.reference_of(flavour, args, stats).cpu().numpy()
+    if not np.array_equal(g <= -1e30, p <= -1e30) or not np.isfinite(g).all():
+        raise PhaseError(f"wavefront {flavour} {name}: -1e30 items differ from the plain "
+                         "version, or a result is not finite")
+    live = p > -1e30
+    deep = live & (g < FORWARD_FLOOR) & (p < FORWARD_FLOOR)
+    held = live & ~deep
+    err = np.abs(g[held] - p[held])
+    rel = float(np.max(err / np.maximum(1.0, np.abs(p[held])))) if held.any() else 0.0
+    if not rel <= K23_TOL:
+        raise PhaseError(f"wavefront {flavour} {name}: rel err {rel} > {K23_TOL}")
+    B, Xp = args[0].shape
+    Yp = args[2].shape[1]
+    case = {"kernel": flavour, "case": name, "B": B, "Xp": Xp, "Yp": Yp,
+            "cols_per_thread": pwf.cols_per_thread(Yp), "impossible": int((~live).sum()),
+            "below_floor": int(deep.sum()), "max_abs_err": float(err.max()) if held.any()
+            else 0.0, "max_rel_err": rel, "cells_computed": stats["cells"],
+            "cells_full": int((args[1].double() * args[4].double()).sum().item())}
+    if name.startswith("main"):
+        case["ms"] = timer(lambda: fn(*args), 10, ahead=True)
+        case["plain_ms"] = timer(lambda: pwf.reference_of(flavour, args), 1,
+                                 warmup=0)  # ran just above
+        case["gcells_per_s"] = stats["cells"] / case["ms"] / 1e6
+        case.update(roofline(WAVEFRONT_OPS_PER_CELL[flavour] * stats["cells"],
+                             sum(t.numel() * t.element_size() for t in args) + 4 * B))
+    return case
+
+
+def phase_wavefront_vs_plain(timer=cuda_ms):
+    """(k1): the wavefront kernel of every flavour against its plain
+    version on the card, with the ONT-like gaps of (a'') and its hop rates
+    (ln 0.05), without and with the realigner's bands."""
+    from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams
+    from varlociraptor_tpu_torch.ops import pairhmm_wavefront as pwf
+
+    hop = HopParams(*([[HOP_LN] * 4] * 4))
+    out = {"phase": "wavefront_vs_plain", "tol_rel": K23_TOL, "floor": FORWARD_FLOOR,
+           "gap": GAP_ONT, "hop_ln": HOP_LN, "cases": []}
+    worst = dict.fromkeys(WAVEFRONT_FLAVOURS, 0.0)
+    timed = {f: {} for f in WAVEFRONT_FLAVOURS}
+    for name, alleles, reads, quals, dists in wavefront_sets():
+        for flavour in WAVEFRONT_FLAVOURS:
+            _, args = pwf.wavefront_args(
+                alleles, reads, quals, dists, GAP_ONT, "cuda",
+                hop=None if flavour == "banded" else hop, hop_states=flavour == "hop")
+            case = wavefront_case(flavour, name, args, timer)
+            worst[flavour] = max(worst[flavour], case["max_abs_err"])
+            if "ms" in case:
+                timed[flavour][name] = case
+            out["cases"].append(case)
+    out["max_abs_err"] = worst
+    return out, timed
+
+
+# phase (k2)-(k4)'s regions: the head of phase (e)'s and phase (d)'s
+# candidates that the plain CPU wavefronts take in ~15-30 s
+HOP_REGION_LOCI = 24
+BANDED_REGION_LOCI = 36
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Set the VLT_* switches inside the block (None unsets), then restore."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def region_head(candidates, n):
+    """The region (CHROM:1-POS) that holds the first n candidate records of
+    the first contig."""
+    recs = [line.split("\t", 2)[:2] for line in Path(candidates).read_text().splitlines()
+            if line and not line.startswith("#")]
+    chrom = recs[0][0]
+    pos = [int(p) for c, p in recs if c == chrom][: n]
+    return f"{chrom}:1-{pos[-1]}"
+
+
+def wavefront_counts():
+    from varlociraptor_tpu_torch.ops import pairhmm_wavefront as pwf
+
+    return {f: pwf.WRAPPERS[f].launches for f in WAVEFRONT_FLAVOURS}
+
+
+def reset_wavefront_counts():
+    from varlociraptor_tpu_torch.ops import pairhmm_wavefront as pwf
+
+    for f in WAVEFRONT_FLAVOURS:
+        pwf.WRAPPERS[f].launches = 0
+
+
+def region_run(world, props, region, out, device, flags=(), **switches):
+    """``preprocess variants --region`` of the tumor with the VLT_* switches
+    given; returns (seconds, wavefront launches, column-kernel launches)."""
+    reset_wavefront_counts()
+    reset_pairhmm_counts()
+    with env_vars(**switches):
+        t0 = time.perf_counter()
+        rc = cli_quiet(["preprocess", "variants", world["fasta"], "--bam", world["tumor"],
+                        "--candidates", world["candidates"], "--output", str(out),
+                        "--sample-name", "tumor", "--alignment-properties", str(props),
+                        "--region", region, "--device", device, *flags])
+        secs = time.perf_counter() - t0
+    if rc != 0:
+        raise PhaseError(f"wavefront_routes: preprocess {switches} on {device} returned {rc}")
+    return secs, wavefront_counts(), pairhmm_counts()
+
+
+def held_to(ref, got, what, ties=False):
+    """compare.py's observation check (the -30 floor) of two files; with
+    ``ties``, reads whose prob_alt equals prob_ref left out of both."""
+    from varlociraptor_tpu_torch.compare import compare_observation_files
+
+    problems, info = compare_observation_files(ref, got, ties=ties)
+    if problems:
+        raise PhaseError(f"wavefront_routes: {what}: " + "; ".join(problems[:3]))
+    return info
+
+
+def phase_wavefront_routes(work, serial, serial_hp, cli_files, device="cuda"):
+    """(k2)-(k5): the pair-HMM routes the JAX package takes off its default,
+    through the CLI on the card: (k2) the hop-state model (VLT_HOP_STATES=1,
+    homopolymer mode) on a region of phase (e)'s world, on the card (the hop
+    wavefront kernel) and on the CPU (its plain version); (k3) the banded
+    wavefront (VLT_PALLAS_PAIRHMM=0) on a region of phase (d)'s world, card
+    against CPU, and its positional flavour on (k2)'s region; (k4) the
+    native host forward (VLT_NATIVE_PAIRHMM=1) on both regions, which
+    launches no pair-HMM kernel, against (k3)'s files; (k5) the columnar
+    caller's flat wire (what VLT_WIRE=flat selects) on phase (c)'s
+    observation files, its calls VCF byte for byte the wire route's."""
+    from varlociraptor_tpu_torch.calling import fastcall
+    from varlociraptor_tpu_torch.io import native
+    from varlociraptor_tpu_torch.ops import ll_classes as k1
+
+    res = {"phase": "wavefront_routes", "native_host_library": native.available()}
+    wf_launches = dict.fromkeys(WAVEFRONT_FLAVOURS, 0)
+    by_part = {}
+    hp_w, pp_w = serial_hp["world"], serial["world"]
+    hp_region = region_head(hp_w["candidates"], HOP_REGION_LOCI)
+    pp_region = region_head(pp_w["candidates"], BANDED_REGION_LOCI)
+    hp_flags = ("--pairhmm-mode", "homopolymer")
+    runs = {}
+
+    def run(name, world, props, region, dev, flags=(), **switches):
+        out = work / f"{name}.{dev}.obs"
+        secs, wf, col = region_run(world, props, region, out, dev, flags, **switches)
+        from varlociraptor_tpu_torch.calling.observations import ObservationReader
+
+        n = len(ObservationReader(str(out)).read_window(1 << 20)[0])
+        runs[f"{name}_{dev}"] = {"region": region, "records": n, "seconds": secs,
+                                 "loci_per_s": n / secs, "wavefront_launches": wf,
+                                 "column_launches": col}
+        if dev != "cpu":  # the plain versions on the CPU count nothing
+            for f in WAVEFRONT_FLAVOURS:
+                wf_launches[f] += wf[f]
+            by_part[name] = {f: v for f, v in wf.items() if v}
+        return out, wf, col
+
+    no_native = {"VLT_NATIVE_PAIRHMM": None}
+    # (k2) hop-state model: card against CPU
+    hop_sw = {"VLT_HOP_STATES": "1", "VLT_PALLAS_PAIRHMM": None, **no_native}
+    g, wf, col = run("hop_states", hp_w, serial_hp["props"], hp_region, device, hp_flags,
+                     **hop_sw)
+    if not wf["hop"] or wf["banded"] or wf["positional"] or any(col.values()):
+        raise PhaseError(f"hop_states: the hop wavefront must launch alone: {wf}, {col}")
+    c, _, _ = run("hop_states", hp_w, serial_hp["props"], hp_region, "cpu", hp_flags,
+                  **hop_sw)
+    res["hop_states_cuda_vs_cpu"] = held_to(c, g, "hop_states cuda vs cpu")
+    # (k3) VLT_PALLAS_PAIRHMM=0: the banded wavefront, card against CPU, and
+    # its positional flavour in homopolymer mode
+    off_sw = {"VLT_HOP_STATES": "0", "VLT_PALLAS_PAIRHMM": "0", **no_native}
+    banded, wf, col = run("pallas_off", pp_w, serial["props"], pp_region, device, **off_sw)
+    if not wf["banded"] or wf["hop"] or wf["positional"] or any(col.values()):
+        raise PhaseError(f"pallas_off: the banded wavefront must launch alone: {wf}, {col}")
+    c, _, _ = run("pallas_off", pp_w, serial["props"], pp_region, "cpu", **off_sw)
+    res["pallas_off_cuda_vs_cpu"] = held_to(c, banded, "pallas_off cuda vs cpu")
+    positional, wf, col = run("pallas_off_homopolymer", hp_w, serial_hp["props"], hp_region,
+                              device, hp_flags, **off_sw)
+    if not wf["positional"] or wf["hop"] or wf["banded"] or any(col.values()):
+        raise PhaseError(f"pallas_off_homopolymer: the positional wavefront must launch "
+                         f"alone: {wf}, {col}")
+    # (k4) the native host forward: no pair-HMM kernel, (k3)'s files
+    nat_sw = {"VLT_HOP_STATES": "0", "VLT_PALLAS_PAIRHMM": None, "VLT_NATIVE_PAIRHMM": "1"}
+    for name, world, props, region, flags, ref in (
+            ("native", pp_w, serial["props"], pp_region, (), banded),
+            ("native_homopolymer", hp_w, serial_hp["props"], hp_region, hp_flags, positional)):
+        got, wf, col = run(name, world, props, region, device, flags, **nat_sw)
+        if any(wf.values()) or any(col.values()):
+            raise PhaseError(f"{name}: a pair-HMM kernel launched: {wf}, {col}")
+        # a read whose alleles tie is kept by one route and not the other,
+        # in the JAX package alike (ROADMAP C)
+        res[f"{name}_vs_wavefront"] = held_to(ref, got, f"{name} vs the wavefront",
+                                              ties=True)
+    res["runs"] = runs
+    # (k5) the flat wire on phase (c)'s files
+    calls = work / "calls_flat.vcf"
+    saved = fastcall.ColumnarCaller.wire_mode
+    fastcall.ColumnarCaller.wire_mode = "flat"
+    k1.ll_classes.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = cli_quiet(["call", "variants", "tumor-normal", "--tumor", cli_files["tumor"],
+                        "--normal", cli_files["normal"], "--purity", "0.75", "--device",
+                        device, "--output", str(calls)])
+        flat_s = time.perf_counter() - t0
+    finally:
+        fastcall.ColumnarCaller.wire_mode = saved
+    k1_flat = k1.ll_classes.launches
+    if rc != 0 or k1_flat == 0:
+        raise PhaseError(f"flat wire: the call returned {rc}, K1 launches {k1_flat}")
+    if calls.read_bytes() != Path(cli_files["calls"]).read_bytes():
+        raise PhaseError("flat wire: the calls VCF differs from the wire route's")
+    res["flat_wire"] = {"call_s": flat_s, "k1_launches": k1_flat,
+                        "identical_to_wire": True}
+    res["wavefront_launches"] = wf_launches
+    res["wavefront_launches_by_part"] = by_part
+    return res, wf_launches, by_part, k1_flat
+
+
 def main():
     import os
 
@@ -2301,6 +2673,12 @@ def main():
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    # phases (d)'s and (e)'s worlds, simulated on the host while (a)-(c) run
+    import atexit
+
+    atexit.register(stop_world_jobs)
+    pp_world = WorldJob(work / "world", **PREPROCESS_WORLD)
+    hp_world = WorldJob(work / "homopolymer" / "world", **PREPROCESS_WORLD, homopolymer=True)
 
     t0 = time.perf_counter()
     _build.load()
@@ -2317,10 +2695,9 @@ def main():
     emit(phase_engine(engine))
     c, launches = phase_cli(work)
     emit(c)
-    d, hmm_launches, serial = phase_preprocess(work)
+    d, hmm_launches, serial = phase_preprocess(work, pp_world)
     emit(d)
-    (work / "homopolymer").mkdir()
-    e, hp_launches, serial_hp = phase_homopolymer(work / "homopolymer")
+    e, hp_launches, serial_hp = phase_homopolymer(work / "homopolymer", hp_world)
     emit(e)
     (work / "engine_modes").mkdir()
     f, mode_launches = phase_engine_modes(work / "engine_modes")
@@ -2341,6 +2718,12 @@ def main():
     j, sharded_launches = phase_sharded(
         work / "sharded", engine, {**cli_files, "kept": str(work / "somatic.fdr.vcf")})
     emit(j)
+    k1_phase, wf_timed = phase_wavefront_vs_plain()
+    emit(k1_phase)
+    (work / "wavefront").mkdir()
+    k, wf_launches, wf_by_part, k1_flat = phase_wavefront_routes(
+        work / "wavefront", serial, serial_hp, cli_files)
+    emit(k)
     by_phase = {kind: {"preprocess": hmm_launches[kind], "homopolymer": hp_launches[kind],
                        "preprocess_threads": thread_launches[kind],
                        "kinds_and_testcases": kinds_launches[kind]}
@@ -2360,11 +2743,11 @@ def main():
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": (launches + mode_launches + legacy_launches + kinds_launches["ll_classes"]
-                     + sharded_launches),
+                     + sharded_launches + k1_flat),
         "launches_by_phase": {"cli": launches, "engine_modes": mode_launches,
                               "legacy_and_estimates": legacy_launches,
                               "kinds_and_testcases": kinds_launches["ll_classes"],
-                              "sharded": sharded_launches},
+                              "sharded": sharded_launches, "wavefront_routes": k1_flat},
         "max_abs_err": max([a["max_abs_err"]] + [c["max_abs_err"] for c in k1_legacy]),
         **timing(bench), "library_ms": None,
     }] + [{
@@ -2379,7 +2762,16 @@ def main():
         "launches_by_phase": by_phase["positional"],
         "max_abs_err": a3["max_abs_err"], **timing(k4_bench), "library_ms": None,
         **main_shape(k4_main),
-    }]})
+    }] + [{
+        "name": f"pairhmm_wavefront_{flavour}", "route": "cuda", "source": WAVEFRONT_SOURCE,
+        "replaces": WAVEFRONT_REPLACES[flavour], "launches": wf_launches[flavour],
+        "launches_by_phase": {"wavefront_routes": {
+            part: n[flavour] for part, n in wf_by_part.items() if flavour in n}},
+        "max_abs_err": k1_phase["max_abs_err"][flavour],
+        **timing(wf_timed[flavour]["main"]), "library_ms": None,
+        "shape": [wf_timed[flavour]["main"][k] for k in ("B", "Xp", "Yp")],
+        "banded": timing(wf_timed[flavour]["main_banded"]),
+    } for flavour in WAVEFRONT_FLAVOURS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -593,3 +593,66 @@ def test_testcase_replay_on_the_card_matches_the_cpu(card, kinds_world, tmp_path
     problems, _ = compare_vcf_text((tmp_path / "cpu" / "calls.vcf").read_text(),
                                    (tmp_path / "gpu" / "calls.vcf").read_text(), rel_tol=1e-3)
     assert not problems, (kind, problems)
+
+
+def _wavefront_sets():
+    from varlociraptor_tpu_torch.bench_utils import semiglobal_distances
+
+    sets = {name: (*items, None) for name, items in pairhmm_edge_items().items()
+            if name != "long_allele"}
+    a, r, q = pairhmm_shape_items(256, 128, 100, seed=7)
+    sets["shape_128"] = (a, r, q, None)
+    sets["shape_128_banded"] = (a, r, q, [int(d) + 4 for d in semiglobal_distances(a, r)])
+    a, r, q = pairhmm_items(21, 3)
+    sets["synth_banded"] = (a, r, q, [int(d) + 4 for d in semiglobal_distances(a, r)])
+    return sets
+
+
+@pytest.mark.parametrize("flavour", ["banded", "positional", "hop"])
+@pytest.mark.parametrize("name", sorted(_wavefront_sets()))
+def test_wavefront_kernel_matches_plain(card, flavour, name):
+    """The wavefront kernel (csrc/pairhmm_wavefront.cu) of each flavour
+    against its plain version on the card, with and without the realigner's
+    band (edit distance + 4): -1e30 alike, the rest within 1e-4 * max(1,
+    |x|); the item path on the card against the CPU."""
+    from varlociraptor_tpu_torch.ops import pairhmm_wavefront as pwf
+
+    alleles, reads, quals, dists = _wavefront_sets()[name]
+    hop = None if flavour == "banded" else HOP
+    got_flavour, args = pwf.wavefront_args(alleles, reads, quals, dists, GAP_ONT, card,
+                                           hop=hop, hop_states=flavour == "hop")
+    assert got_flavour == flavour
+    fn = pwf.WRAPPERS[flavour]
+    n0 = fn.launches
+    g = fn(*args).cpu().numpy()
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    r = pwf.reference_of(flavour, args).cpu().numpy()
+    assert np.array_equal(g == -1e30, r == -1e30) and np.isfinite(g).all()
+    ok = r > -1e30
+    assert np.all(np.abs(g[ok] - r[ok]) <= PAIRHMM_TOL * np.maximum(1.0, np.abs(r[ok])))
+    gpu = pwf.forward_items(alleles, reads, quals, dists, GAP_ONT, card, hop=hop,
+                            hop_states=flavour == "hop")
+    cpu = pwf.forward_items(alleles, reads, quals, dists, GAP_ONT, "cpu", hop=hop,
+                            hop_states=flavour == "hop")
+    ok = cpu > -1e30
+    assert np.array_equal(gpu == -1e30, cpu == -1e30)
+    assert np.all(np.abs(gpu[ok] - cpu[ok]) <= PAIRHMM_TOL * np.maximum(1, np.abs(cpu[ok])))
+
+
+def test_wavefront_wrapper_checks_its_inputs(card):
+    from varlociraptor_tpu_torch.ops import pairhmm_wavefront as pwf
+
+    alleles, reads, quals = pairhmm_items(8, 3)
+    _, (a, al, r, m, rl, g, me) = pwf.wavefront_args(alleles, reads, quals, None, GAP_ONT,
+                                                     card)
+    n0 = pwf.banded_forward.launches
+    with pytest.raises(TypeError, match="float32"):
+        pwf.banded_forward(a, al, r, m.double(), rl, g, me)
+    with pytest.raises(ValueError, match="gaps must be"):
+        pwf.banded_forward(a, al, r, m, rl, m[0], me)
+    with pytest.raises(ValueError, match="contiguous"):
+        pwf.banded_forward(a, al, r[:, ::2], m, rl, g, me)
+    with pytest.raises(ValueError):
+        pwf.banded_forward(a, al, r, m, rl, g, me.cpu())
+    assert pwf.banded_forward.launches == n0

@@ -170,7 +170,9 @@ print("RECORDS", len(records))
 
 def test_cli_runs_with_jax_blocked(tmp_path):
     guard = str(ROOT / "scripts" / "torch_no_jax")
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+    # VLT_HOP_STATES=0: the homopolymer run holds the positional-gap route
+    # (tests/test_hop_pairhmm.py sets it to 1 when it is imported)
+    env = {**os.environ, "VLT_HOP_STATES": "0", "PYTHONPATH": os.pathsep.join(
         p for p in (guard, os.environ.get("PYTHONPATH")) if p)}
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), str(tmp_path)],

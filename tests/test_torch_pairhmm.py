@@ -42,6 +42,7 @@ from varlociraptor_tpu_torch.bench_utils import (
 from varlociraptor_tpu_torch.convert import pairhmm_from_jax
 from varlociraptor_tpu_torch.estimation.alignment_properties import GapParams, HopParams
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc
+from varlociraptor_tpu_torch.ops import pairhmm_wavefront as pwf
 from varlociraptor_tpu_torch.ops.pairhmm import BatchedPairHMM
 
 TOL = 5e-4
@@ -54,6 +55,16 @@ LN_005 = math.log(0.05)
 HOP = HopParams(*([[LN_005] * 4] * 4))
 HOP_MIXED = HopParams([LN_005, -math.inf, -20.0, -3.0], [-2.5, LN_005, -math.inf, -9.0],
                       [-1.0, -math.inf, -0.5, -30.0], [-math.inf, -1.2, -0.7, -0.1])
+
+
+@pytest.fixture(autouse=True)
+def _default_routes(monkeypatch):
+    """The routes these tests hold: tests/test_hop_pairhmm.py sets
+    VLT_HOP_STATES=1 when it is imported (every xdist worker imports it),
+    and the port's dispatcher reads it."""
+    monkeypatch.setenv("VLT_HOP_STATES", "0")
+    monkeypatch.delenv("VLT_NATIVE_PAIRHMM", raising=False)
+    monkeypatch.delenv("VLT_PALLAS_PAIRHMM", raising=False)
 
 
 def _jax(params):
@@ -194,30 +205,44 @@ def test_plain_k3_matches_jax_on_the_tile_sets(name):
 
 def _spy(monkeypatch):
     calls = []
-    for name in ("exact_forward", "general_forward", "positional_forward"):
-        fn = getattr(phc, name)
+    for module, name in ((phc, "exact_forward"), (phc, "general_forward"),
+                         (phc, "positional_forward"), (pwf, "banded_forward")):
+        fn = getattr(module, name)
 
         def spy(*args, _fn=fn, _name=name):
             calls.append(_name)
             return _fn(*args)
 
-        monkeypatch.setattr(phc, name, spy)
+        monkeypatch.setattr(module, name, spy)
+    # the wavefront route reaches its wrappers through WRAPPERS
+    monkeypatch.setitem(pwf.WRAPPERS, "banded", pwf.banded_forward)
     return calls
+
+
+def _route_values(alleles, reads, quals, gap, kernel, hop=None):
+    """What the route of ``kernel`` computes on the CPU (full window)."""
+    if kernel == "banded_forward":
+        return pwf.forward_items(alleles, reads, quals, None, gap, "cpu")
+    return phc.forward_items(alleles, reads, quals, gap, "cpu",
+                             kernel == "general_forward", hop=hop)
 
 
 @pytest.mark.parametrize(
     "gaps,kernel",
     [(DEFAULT_GAPS, "exact_forward"), (ONT_GAPS, "general_forward"),
-     (GapParams(prob_insertion_extend_artifact=math.log(0.2)), "general_forward")],
+     (GapParams(prob_insertion_extend_artifact=math.log(0.2)), "banded_forward")],
     ids=["zero_extension", "finite_extension", "one_finite_extension"],
 )
 def test_dispatch(monkeypatch, gaps, kernel):
+    """K2 at zero extension, K3 when both extensions are finite; with one
+    finite extension the JAX package's banded wavefront (its K3 route wants
+    both, ops/pairhmm.py:687)."""
     calls = _spy(monkeypatch)
     alleles, reads, quals = pairhmm_items(9, 11)
     hmm = BatchedPairHMM(gaps, device="cpu")
     out = hmm.forward(alleles, reads, quals, [None] * len(alleles))
     assert calls == [kernel]
-    ref = phc.forward_items(alleles, reads, quals, hmm.gap, "cpu", kernel == "general_forward")
+    ref = _route_values(alleles, reads, quals, hmm.gap, kernel)
     assert np.array_equal(out, ref)
 
 
@@ -225,20 +250,21 @@ def test_dispatch(monkeypatch, gaps, kernel):
     "gaps,hop,kernel",
     [(DEFAULT_GAPS, HOP, "positional_forward"), (ONT_GAPS, HOP, "positional_forward"),
      (DEFAULT_GAPS, HopParams(), "positional_forward"),
-     (DEFAULT_GAPS, None, "exact_forward"), (ONT_GAPS, None, "general_forward")],
+     (DEFAULT_GAPS, None, "banded_forward"), (ONT_GAPS, None, "general_forward")],
     ids=["hop_zero_ext", "hop_finite_ext", "hop_all_inf", "no_hop_zero_ext", "no_hop_finite_ext"],
 )
 def test_dispatch_homopolymer(monkeypatch, gaps, hop, kernel):
     """mode="homopolymer" goes to K4 whenever hop params are given (the
     estimate's default HopParams() of -inf included), whatever the gap
-    model; without hop params to K2 / K3, as in the JAX package."""
+    model; without hop params to K3 when both extensions are finite, else
+    to the banded wavefront (the JAX package's K2 route wants mode
+    "exact")."""
     calls = _spy(monkeypatch)
     alleles, reads, quals = pairhmm_items(9, 11)
     hmm = BatchedPairHMM(gaps, hop, mode="homopolymer", device="cpu")
     out = hmm.forward(alleles, reads, quals, [None] * len(alleles))
     assert calls == [kernel]
-    ref = phc.forward_items(alleles, reads, quals, hmm.gap, "cpu",
-                            kernel == "general_forward", hop=hop)
+    ref = _route_values(alleles, reads, quals, hmm.gap, kernel, hop=hop)
     assert np.array_equal(out, ref)
 
 

@@ -70,6 +70,14 @@ def world(tmp_path_factory):
     return synth_preprocess_world(tmp_path_factory.mktemp("world"), **TINY_WORLD)
 
 
+@pytest.fixture(autouse=True)
+def _positional_gap_route(monkeypatch):
+    """The homopolymer route these tests hold is the positional-gap one:
+    tests/test_hop_pairhmm.py sets VLT_HOP_STATES=1 when it is imported
+    (every xdist worker imports it), and the port's dispatcher reads it."""
+    monkeypatch.setenv("VLT_HOP_STATES", "0")
+
+
 def _props(world, model):
     props = estimate(BamReader(world["normal"]), reference=FastaBuffer(world["fasta"]))
     if model == "ont":

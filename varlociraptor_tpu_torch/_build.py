@@ -122,5 +122,9 @@ def load():
             # B, Xp, Yp and its tile
             lib.vlt_pairhmm_positional.argtypes = [p] * 10 + [i] * 5 + [p]
             lib.vlt_pairhmm_positional.restype = i
+            # the wavefronts: flavour, 12 input pointers (null where the
+            # flavour reads nothing), out, B, X, Y
+            lib.vlt_pairhmm_wavefront.argtypes = [i] + [p] * 13 + [i] * 3 + [p]
+            lib.vlt_pairhmm_wavefront.restype = i
             _lib = lib
         return _lib

@@ -385,6 +385,38 @@ def pairhmm_edge_items(seed=0):
 PAIRHMM_TILE_WIDTHS = (32, 64, 96, 128, 160, 256, 1024, 1056)
 
 
+def semiglobal_distances(alleles, reads):
+    """The semiglobal edit distance of each read against its allele (free
+    start and end on the allele, the read consumed in full; unit costs), an
+    int64 [n] array: the ``hit.dist`` the realigner's band starts from
+    (``evidence/realignment.py``: ``max_dists = hit.dist + EDIT_BAND``).
+    One numpy DP over the read positions for all items at once."""
+    n = len(alleles)
+    X = max(len(a) for a in alleles)
+    Y = max(len(r) for r in reads)
+    al = np.zeros((n, X), np.int16) - 1
+    rd = np.zeros((n, Y), np.int16) - 2
+    alen = np.array([len(a) for a in alleles])
+    rlen = np.array([len(r) for r in reads])
+    for b, (a, r) in enumerate(zip(alleles, reads)):
+        al[b, : len(a)] = np.frombuffer(bytes(a), np.uint8) & 0xDF
+        rd[b, : len(r)] = np.asarray(r, np.uint8) & 0xDF
+    big = 1 << 20
+    inside = np.arange(X + 1)[None, :] <= alen[:, None]
+    row = np.where(inside, 0, big)  # free start on the allele
+    best = np.where(rlen == 0, 0, big)
+    ramp = np.arange(X + 1)[None, :]
+    for j in range(Y):
+        diag = row[:, :-1] + (al != rd[:, j : j + 1])
+        nxt = np.concatenate([row[:, :1] + 1, np.minimum(diag, row[:, 1:] + 1)], axis=1)
+        # the insertions along the allele axis: min over i' <= i of D[i'] + (i - i')
+        nxt = np.minimum.accumulate(nxt - ramp, axis=1) + ramp
+        row = np.where(inside, nxt, big)
+        done = rlen == j + 1
+        best = np.where(done, row.min(axis=1), best)
+    return best
+
+
 def pairhmm_tile_items(seed=0):
     """Sets for the tiled layout of K2-K4 (several items per warp), keyed by name,
     each (alleles, reads, quals): reads of 1, 4, 37 and 100 bases side by

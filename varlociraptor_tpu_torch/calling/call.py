@@ -58,9 +58,6 @@ from .variants import VariantInfo
 # to this size) and per window of the columnar path
 DEFAULT_BATCH = 64
 DEFAULT_COLUMNAR_BATCH = 1024
-# windows in flight on the device while the drain thread fetches, formats
-# and writes earlier ones (the bounded queue is the backpressure)
-DISPATCH_DEPTH = 4
 
 
 @dataclass
@@ -619,7 +616,10 @@ def _call_windows(caller, readers, options, w, sample_names):
     window_n = options.effective_batch(columnar=True)
     progress = _Progress()
     text_ok = type(w) is VcfWriter  # vectorized text fast path
-    out_q: queue.Queue = queue.Queue(maxsize=DISPATCH_DEPTH)
+    # windows in flight on the device while the drain thread fetches, formats
+    # and writes earlier ones (the bounded queue is the backpressure)
+    depth_n = int(os.environ.get("VLT_DISPATCH_DEPTH", "4"))
+    out_q: queue.Queue = queue.Queue(maxsize=max(depth_n, 1))
     state = {"n": 0, "err": None}
 
     def drain_loop():

@@ -7,7 +7,8 @@ replaced by O(N_obs) numpy reductions, and each window ships to the engine's
 device as one uint8 buffer (flat observation rows + per-locus metadata).
 With a device mesh, or ``VLT_WIRE=panels``, a window ships as dense padded
 panels instead (``PosteriorEngine.run_compact``; over the mesh
-``parallel.sharding.run_sharded_compact``).
+``parallel.sharding.run_sharded_compact``); with ``VLT_WIRE=flat`` as flat
+per-array rows and a row index (``PosteriorEngine.run_flat``).
 
 Output records are built by a vectorized formatter (integer-coded audit
 strings counted with np.unique instead of per-read Counters).
@@ -140,10 +141,12 @@ class ColumnarCaller(GenericCaller):
 
     # "wire" (default) ships ONE uint8 buffer per window (flat observation
     # rows + per-locus metadata) and rebuilds the panels on the device by
-    # gather (engine.run_wire).  "panels" ships the padded [L,S,D] panels
-    # (engine.run_compact): the single-device run of the program a mesh
-    # shards, which the mesh path is held to byte for byte.  A mesh always
-    # takes the panels.  VLT_WIRE=panels opts in (differential testing).
+    # gather (engine.run_wire).  "flat" ships the per-array flat rows and a
+    # row index (engine.run_flat, a scatter on the device).  "panels" ships
+    # the padded [L,S,D] panels (engine.run_compact): the single-device run
+    # of the program a mesh shards, which the mesh path is held to byte for
+    # byte.  A mesh always takes the panels.  VLT_WIRE=flat|panels opts in
+    # (differential testing).
     wire_mode = __import__("os").environ.get("VLT_WIRE", "wire")
 
     def call_window_cb(self, cb: ColumnarBatch, contig, sync=True):
@@ -213,11 +216,12 @@ class ColumnarCaller(GenericCaller):
             if ln_prior_joint is not None:
                 ln_prior_joint[li] = hit[1]
 
-        if self.wire_mode not in ("wire", "panels"):
-            raise NotImplementedError(
-                f"VLT_WIRE={self.wire_mode!r}: the port has the 'wire' and "
-                "'panels' routes ('flat' is not ported: ROADMAP A9)"
+        if self.wire_mode not in ("wire", "flat", "panels"):
+            raise ValueError(
+                f"VLT_WIRE={self.wire_mode!r}: the routes are 'wire', 'flat' and "
+                "'panels'"
             )
+        use_flat = self.mesh is None and self.wire_mode in ("flat", "wire")
         use_wire = self.mesh is None and self.wire_mode == "wire"
         d_l = cb.counts.max(axis=1) if cb.counts.size else np.ones(L, int)
         d_l = np.maximum(d_l, 1)
@@ -270,7 +274,7 @@ class ColumnarCaller(GenericCaller):
             hal_b = has_alt_loci[idx]
             na_b = n_artifact_active[idx]
             pj_b = ln_prior_joint[idx] if ln_prior_joint is not None else None
-            if use_wire:
+            if use_flat:
                 f16f, u8f, hilf, rowf, counts = cb.pack_flat(depth, locus_idx=idx)
             else:
                 obs_f16, obs_u8, hil, mask, counts = cb.pack_panels(
@@ -283,7 +287,7 @@ class ColumnarCaller(GenericCaller):
                     padded[:Lb] = a
                     return padded
 
-                if not use_wire:
+                if not use_flat:
                     obs_f16 = _pad(obs_f16)
                     obs_u8 = _pad(obs_u8)
                     hil = _pad(hil, HOMOPOLYMER_NONE)
@@ -298,7 +302,7 @@ class ColumnarCaller(GenericCaller):
                 na_b = _pad(na_b, 1.0)
                 if pj_b is not None:
                     pj_b = _pad(pj_b)
-            if not use_wire:
+            if not use_flat:
                 # a mesh shards every window but a --full-prior one (which
                 # carries the joint prior), as in JAX
                 if self.mesh is not None and pj_b is None:
@@ -328,6 +332,16 @@ class ColumnarCaller(GenericCaller):
                     [u8f, np.zeros((Np - N,) + u8f.shape[1:], u8f.dtype)]
                 )
                 hilf = np.concatenate([hilf, np.zeros(Np - N, hilf.dtype)])
+            if not use_wire:
+                if N < Np:
+                    # padding rows scatter to L*S*D, past the panels (dropped)
+                    rowf = np.concatenate([rowf, np.full(Np - N, Lp * S * depth, np.int32)])
+                pending = engine.run_flat(
+                    f16f, u8f, hilf, rowf, Lp, depth, sm, sa, bg, pa_b, fr_b, hal_b,
+                    ln_prior_joint=pj_b, n_artifact_active=na_b, fetch=False,
+                )
+                groups.append((idx, Lb, pending))
+                continue
             # pin the combo-slot width (a window-adaptive width would be a
             # third shape axis)
             Bfix = min(8, Bmax)

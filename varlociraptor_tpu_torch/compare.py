@@ -275,10 +275,38 @@ def _of_kinds(obs, kinds):
                        cols.frag[rows]), depth[keep])
 
 
+def _tie_reads(obs):
+    """The number of reads of each record of ``_read_observations``'s
+    (variants, counts, columns, raw depth) whose prob_alt equals prob_ref
+    (in the file's float16)."""
+    from .ops.compact_obs import CF_PA, CF_PR
+
+    _, counts, cols, _ = obs
+    tie = cols.f16[:, CF_PA] == cols.f16[:, CF_PR]
+    record = np.repeat(np.arange(len(counts)), counts)
+    return np.bincount(record[tie], minlength=len(counts))
+
+
+def _of_records(obs, keep):
+    """The records of ``_read_observations``'s tuple where ``keep``."""
+    from .calling.observations import ObsColumns
+
+    variants, counts, cols, depth = obs
+    rows = np.repeat(keep, counts)
+    return ([v for v, k in zip(variants, keep) if k], counts[keep],
+            ObsColumns(cols.f16[rows], cols.u8[rows], cols.hil[rows], cols.third[rows],
+                       cols.frag[rows]), depth[keep])
+
+
 def compare_observation_files(ref_path, got_path, n=None, rel_tol=OBS_REL_TOL,
-                              floor=OBS_FLOOR, kinds=None):
+                              floor=OBS_FLOOR, kinds=None, ties=False):
     """Two observation files of the same candidates (first n records; with
-    ``kinds``, only the records of those variant kinds).
+    ``kinds``, only the records of those variant kinds).  With ``ties``, a
+    record whose read counts differ by reads whose prob_alt equals prob_ref
+    is left out (its other reads' per-record values then differ too): such
+    a read says nothing for either allele, and whether it is kept at all
+    follows the last bits of the pair-HMM's arithmetic (the JAX package's
+    native and wavefront routes keep different ones).
 
     Returns (problems, info): records, read counts and every field the
     pair-HMM does not touch must be identical; prob_alt, prob_ref and
@@ -291,6 +319,13 @@ def compare_observation_files(ref_path, got_path, n=None, rel_tol=OBS_REL_TOL,
     a, b = _read_observations(ref_path, n), _read_observations(got_path, n)
     if kinds is not None:
         a, b = _of_kinds(a, kinds), _of_kinds(b, kinds)
+    left_out = None
+    if ties and len(a[1]) == len(b[1]):
+        differ = a[1] != b[1]
+        if np.array_equal(a[1][differ] - _tie_reads(a)[differ],
+                          b[1][differ] - _tie_reads(b)[differ]):
+            left_out = [int(i) for i in np.nonzero(differ)[0]]
+            a, b = _of_records(a, ~differ), _of_records(b, ~differ)
     va, ca, ka, da = a
     vb, cb, kb, db = b
     problems = []
@@ -330,4 +365,6 @@ def compare_observation_files(ref_path, got_path, n=None, rel_tol=OBS_REL_TOL,
             problems.append(f"{name}: {n_bad} reads out of tolerance (max rel {max_rel[name]:.3g})")
     info = {"records": len(va), "reads": int(ca.sum()), "max_rel": max_rel,
             "n_below_floor": n_floor}
+    if left_out is not None:
+        info["records_left_out_for_tie_reads"] = left_out
     return problems, info

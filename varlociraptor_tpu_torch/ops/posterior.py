@@ -1715,6 +1715,73 @@ class PosteriorEngine:
         return self.fetch_run(pending) if fetch else pending
 
     # ------------------------------------------------------------------
+    def run_flat(
+        self,
+        obs_f16,      # [N, N_CF] f16: the window's observations, flat
+        obs_u8,       # [N, N_CU] u8
+        hil,          # [N] i8
+        row_idx,      # [N] i32 = (locus*S + sample)*D + slot; L*S*D = pad
+        L,
+        D,
+        slot_map,
+        combo_active,
+        branch_gates,
+        ln_prior_absent,
+        fwd_rate,
+        has_alt_loci,
+        ln_prior_joint=None,
+        n_artifact_active=None,
+        fetch=True,
+    ):
+        """:meth:`run_compact` with the observation panels FLAT (one row per
+        real observation and its row index), scattered into the padded
+        [L,S,D,*] panels on the device.  Rows with ``row_idx == L*S*D``
+        (padding) are dropped by the scatter.  The columnar caller's
+        ``wire_mode = "flat"``; fetch=False returns a pending handle for
+        :meth:`fetch_run`."""
+        from ..evidence.observation import HOMOPOLYMER_NONE as _HN
+        from .compact_obs import N_CF, N_CU
+
+        S = self.n_samples
+        Ls, Ds = int(L), int(D)
+        rows = Ls * S * Ds
+        dev = self.device
+        f32 = torch.float32
+        if n_artifact_active is None:
+            n_art = torch.full((Ls,), float(self.n_artifact_combos or 1), device=dev)
+        else:
+            n_art = self._as_tensor(n_artifact_active, f32)
+        with torch.no_grad():
+            ridx = self._as_tensor(row_idx, torch.int64)
+            keep = ridx < rows
+            ridx = ridx[keep]
+            f16 = torch.zeros((rows, N_CF), dtype=torch.float16, device=dev)
+            f16[ridx] = self._as_tensor(obs_f16, torch.float16)[keep]
+            u8 = torch.zeros((rows, N_CU), dtype=torch.uint8, device=dev)
+            u8[ridx] = self._as_tensor(obs_u8, torch.uint8)[keep]
+            hil_p = torch.full((rows,), _HN, dtype=torch.int8, device=dev)
+            hil_p[ridx] = self._as_tensor(hil, torch.int8)[keep]
+            mask = torch.zeros((rows,), dtype=torch.bool, device=dev)
+            mask[ridx] = True
+            mask = mask.reshape(Ls, S, Ds)
+            out = self._compact_core(
+                f16.reshape(Ls, S, Ds, N_CF),
+                u8.reshape(Ls, S, Ds, N_CU),
+                hil_p.reshape(Ls, S, Ds),
+                mask,
+                self._as_tensor(slot_map, torch.int64),
+                self._as_tensor(combo_active, torch.bool),
+                self._as_tensor(branch_gates, torch.bool),
+                self._as_tensor(ln_prior_absent, f32),
+                self._as_tensor(fwd_rate, f32),
+                self._as_tensor(has_alt_loci, torch.bool),
+                None if ln_prior_joint is None else self._as_tensor(ln_prior_joint, f32),
+                n_art,
+            )
+            pending = self._start_fetch(self._device_outputs(out, mask), Ls)
+        return self.fetch_run(pending) if fetch else pending
+
+    # ------------------------------------------------------------------
     def _in_wire_spec(self, Np, L, D, Bc, pj_shape):
         """Section layout of the single uint8 input buffer (4-byte aligned
         sections)."""

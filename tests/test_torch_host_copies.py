@@ -9,7 +9,8 @@ leaves out on purpose (the ``jnp_*`` helpers), the
 top-level functions named in ``PORTED`` (rewritten for torch and a device,
 held to the JAX package by their own tests), the lines named in
 ``REWRITTEN`` (where the port's native host library lives, what a module's
-docstring says of its device code, the default mesh of the sharded FDR, the reading of BGZF BCF observation
+docstring says of its device code, the default mesh of the sharded FDR and the
+FDR filter's tracing span, the reading of BGZF BCF observation
 files, the ``device`` of the testcase runner, the port's own package name in
 a docstring and a logger name), and paths into the Rust reference's
 sources, which the copies cite from the reference repository's root
@@ -126,9 +127,10 @@ REWRITTEN = {
     },
     # the sharded FDR's default mesh: one shard per visible card (the
     # original's ``locus_mesh(jax.devices())``; its ``import jax`` is an
-    # import line)
+    # import line), and the FDR filter's tracing span
     "filtration/fdr.py": {
         "            mesh = locus_mesh()": "            mesh = locus_mesh(jax.devices())",
+        '@tracing.traced("fdr.control")': None,
     },
     # the port's own package names where the original names its own
     "testcase_builder.py": {

@@ -15,6 +15,7 @@ each engine batch over the mesh's shards.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import queue
@@ -48,6 +49,7 @@ from ..ops.grid import AFGrid
 from ..ops.prior import build_prior
 from ..utils.logprob import np_ln_sum_exp, np_log_from_phred, np_phred_from_log
 
+from .. import tracing
 from ..device import resolve_device
 from ..ops.biases import FULL_COMBOS_DEFAULT as FULL_COMBOS
 from ..ops.posterior import PosteriorEngine, SampleConfig
@@ -493,6 +495,7 @@ class GenericCaller:
         return results
 
 
+@tracing.traced("call.generic")
 def call_generic(
     scenario: Scenario,
     observation_paths: dict,
@@ -622,25 +625,29 @@ def _call_windows(caller, readers, options, w, sample_names):
     out_q: queue.Queue = queue.Queue(maxsize=max(depth_n, 1))
     state = {"n": 0, "err": None}
 
+    @tracing.traced("call.drain")
     def drain_loop():
-        while True:
-            item = out_q.get()
+        for k in itertools.count():  # items arrive in window order: the k-th is window k
+            with tracing.span("call.wait_main", k):
+                item = out_q.get()
             if item is None:
                 return
             if state["err"] is not None:
                 continue  # drain remaining items after a failure
             cb_p, pw = item
             try:
-                out, meta = pw.finish()
-                if text_ok:
-                    w._fh.write(
-                        caller.format_window_text(cb_p, out, meta, sample_names)
-                    )
-                    state["n"] += cb_p.L
-                else:
-                    for rec in caller.format_window(cb_p, out, meta, sample_names):
-                        w.write(rec)
-                        state["n"] += 1
+                with tracing.span("engine.fetch", k):
+                    out, meta = pw.finish()
+                with tracing.span("call.format", k):
+                    if text_ok:
+                        w._fh.write(
+                            caller.format_window_text(cb_p, out, meta, sample_names)
+                        )
+                        state["n"] += cb_p.L
+                    else:
+                        for rec in caller.format_window(cb_p, out, meta, sample_names):
+                            w.write(rec)
+                            state["n"] += 1
                 progress.tick(state["n"])
             except BaseException as e:  # surfaced on the main thread
                 state["err"] = e
@@ -648,29 +655,35 @@ def _call_windows(caller, readers, options, w, sample_names):
     drainer = threading.Thread(target=drain_loop, name="vlt-drain")
     drainer.start()
     try:
-        while True:
-            windows = [
-                r.read_window(window_n) if r is not None else None
-                for r in readers
-            ]
-            present = [x for x in windows if x is not None]
-            if not present:
-                break
-            lens = {len(x[0]) for x in present}
-            if len(lens) != 1:
-                raise ValueError(
-                    "inconsistent observation files (different lengths)"
-                )
-            if lens == {0}:
-                break
-            cb = ColumnarBatch.from_sample_windows(windows)
-            pw = caller.call_window_cb(cb, cb.variants[0].chrom, sync=False)
-            out_q.put((cb, pw))
+        for wi in itertools.count():
+            with tracing.span("call.read", wi):
+                windows = [
+                    r.read_window(window_n) if r is not None else None
+                    for r in readers
+                ]
+                present = [x for x in windows if x is not None]
+                if not present:
+                    break
+                lens = {len(x[0]) for x in present}
+                if len(lens) != 1:
+                    raise ValueError(
+                        "inconsistent observation files (different lengths)"
+                    )
+                if lens == {0}:
+                    break
+                cb = ColumnarBatch.from_sample_windows(windows)
+            with tracing.span("call.pack", wi):
+                pw = caller.call_window_cb(cb, cb.variants[0].chrom, sync=False)
+            tracing.count("call.windows", 1, wi)
+            tracing.count("call.loci", cb.L, wi)
+            with tracing.span("call.wait_drain", wi):
+                out_q.put((cb, pw))
             if state["err"] is not None:
                 break
     finally:
-        out_q.put(None)
-        drainer.join()
+        with tracing.span("call.wait_drain"):
+            out_q.put(None)
+            drainer.join()
     if state["err"] is not None:
         raise state["err"]
     return state["n"]

@@ -18,6 +18,7 @@ import math
 
 import numpy as np
 
+from .. import tracing
 from ..calling.variants import collect_variants
 from ..io.vcf import VcfReader, open_variant_file, VcfWriter, open_variant_writer
 from ..utils.logprob import (
@@ -176,6 +177,7 @@ def _threshold_from_rows(rows, smart, ln_alpha):
     return None
 
 
+@tracing.traced("fdr.control")
 def control_fdr(
     in_vcf,
     out_vcf,

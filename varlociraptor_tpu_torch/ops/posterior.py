@@ -38,6 +38,7 @@ import torch
 from ..ops.event_program import SPECTRUM_SET, EventSpec
 from ..ops.grid import AFGrid
 
+from .. import tracing
 from ..device import resolve_device
 from ..evidence.observation import F
 from .likelihood import (
@@ -1598,6 +1599,7 @@ class PosteriorEngine:
         t = torch.as_tensor(np.asarray(a))
         if dtype is not None:
             t = t.to(dtype)
+        tracing.count("engine.h2d_bytes", t.nbytes)
         return t.to(self.device, non_blocking=True)
 
     def run(
@@ -1689,14 +1691,15 @@ class PosteriorEngine:
         pending handle for :meth:`fetch_run`."""
         f32 = torch.float32
         L = np.asarray(obs_f16).shape[0]
-        if n_artifact_active is None:
-            n_art = torch.full(
-                (L,), float(self.n_artifact_combos or 1), device=self.device
-            )
-        else:
-            n_art = self._as_tensor(n_artifact_active, f32)
-        m = self._as_tensor(mask, torch.bool)
-        with torch.no_grad():
+        with tracing.span("engine.dispatch"), torch.no_grad():
+            tracing.count("engine.dispatches", 1)
+            if n_artifact_active is None:
+                n_art = torch.full(
+                    (L,), float(self.n_artifact_combos or 1), device=self.device
+                )
+            else:
+                n_art = self._as_tensor(n_artifact_active, f32)
+            m = self._as_tensor(mask, torch.bool)
             out = self._compact_core(
                 self._as_tensor(obs_f16, torch.float16),
                 self._as_tensor(obs_u8, torch.uint8),
@@ -1747,11 +1750,12 @@ class PosteriorEngine:
         rows = Ls * S * Ds
         dev = self.device
         f32 = torch.float32
-        if n_artifact_active is None:
-            n_art = torch.full((Ls,), float(self.n_artifact_combos or 1), device=dev)
-        else:
-            n_art = self._as_tensor(n_artifact_active, f32)
-        with torch.no_grad():
+        with tracing.span("engine.dispatch"), torch.no_grad():
+            tracing.count("engine.dispatches", 1)
+            if n_artifact_active is None:
+                n_art = torch.full((Ls,), float(self.n_artifact_combos or 1), device=dev)
+            else:
+                n_art = self._as_tensor(n_artifact_active, f32)
             ridx = self._as_tensor(row_idx, torch.int64)
             keep = ridx < rows
             ridx = ridx[keep]
@@ -1842,10 +1846,11 @@ class PosteriorEngine:
         Ls, Ds = int(L), int(D)
         spec = self._in_wire_spec(int(Np), Ls, Ds, int(Bc), pj_shape)
         dev = self.device
-        with torch.no_grad():
-            buf = torch.as_tensor(np.asarray(wire_in, dtype=np.uint8)).to(
-                dev, non_blocking=True
-            )
+        with tracing.span("engine.dispatch"), torch.no_grad():
+            tracing.count("engine.dispatches", 1)
+            host = np.asarray(wire_in, dtype=np.uint8)
+            tracing.count("engine.h2d_bytes", host.nbytes)
+            buf = torch.as_tensor(host).to(dev, non_blocking=True)
             sec = {}
             off = 0
             for name, dtype, shape in spec:

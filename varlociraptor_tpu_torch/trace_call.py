@@ -2,7 +2,7 @@
 
     python -m varlociraptor_tpu_torch.trace_call [--out DIR] [--loci N] [WHAT ...]
 
-WHAT picks among engine, cli, preprocess and modes (default: all).  Six
+WHAT picks among engine, cli, preprocess and modes (default: all).  Five
 measurements, each printed as one JSON line:
 
   engine   one ``PosteriorEngine.run`` at the bench shape (32768 loci, depth
@@ -10,8 +10,9 @@ measurements, each printed as one JSON line:
            kernel, the device's busy share of the call's wall time, and the
            wall time of a plain call for comparison;
   cli      ``call variants tumor-normal --device cuda`` on N synthetic loci
-           under ``torch.profiler``: the device's busy share of the wall;
-  host     the same CLI run under ``cProfile``: host time by function;
+           under ``torch.profiler``: the device's busy share of the wall,
+           and the program's spans and counters (``tracing.summary``): each
+           span's self and total ms per 1,000 loci, each counter's total;
   preprocess
            ``preprocess variants --device cuda`` of the tumor of a 500 kb,
            30x ``synth_preprocess_world`` (500 indel candidates) under
@@ -44,6 +45,8 @@ from pathlib import Path
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+
+from . import tracing
 
 
 def _device_events(prof):
@@ -151,7 +154,7 @@ def trace_modes(out_dir):
     return lines
 
 
-def trace_cli(out_dir, work, n_loci):
+def trace_cli(work, n_loci):
     from . import cli
     from .bench_utils import synth_observation_files
 
@@ -162,26 +165,22 @@ def trace_cli(out_dir, work, n_loci):
     cli.run(argv)  # warm-up: kernel library, engine tables, allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0, t0_ns = time.perf_counter(), time.time_ns()
         cli.run(argv)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        wall_s, t1_ns = time.perf_counter() - t0, time.time_ns()
     busy = _device_busy_s(prof)
-    prof_host = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof_host.runcall(cli.run, argv)
-    host_wall = time.perf_counter() - t0
-    buf = io.StringIO()
-    stats = pstats.Stats(prof_host, stream=buf).sort_stats("cumulative")
-    stats.print_stats(60)
-    (out_dir / "cli_host_profile.txt").write_text(buf.getvalue())
-    return [
-        {"phase": "cli", "n_loci": n_loci, "wall_s": wall_s,
-         "loci_per_s": n_loci / wall_s, "device_busy_s": busy,
-         "device_busy_share": busy / wall_s, "top_device": _device_table(prof, 8)},
-        {"phase": "host", "n_loci": n_loci, "wall_s_under_cprofile": host_wall,
-         "top_self_s": _top_self(stats)},
-    ]
+    spans = tracing.summary(t0_ns, t1_ns)
+    per_1k = 1e3 / (n_loci / 1e3)
+    return {
+        "phase": "cli", "n_loci": n_loci, "wall_s": wall_s,
+        "loci_per_s": n_loci / wall_s, "device_busy_s": busy,
+        "device_busy_share": busy / wall_s, "top_device": _device_table(prof, 8),
+        "spans_ms_per_1k_loci": {
+            k: {"self": v["self_s"] * per_1k, "total": v["total_s"] * per_1k, "n": v["n"]}
+            for k, v in spans["spans"].items()},
+        "counters": spans["counters"], "dropped": spans["dropped"],
+    }
 
 
 def _top_self(stats, n=15):
@@ -258,8 +257,7 @@ def main(argv=None):
     if "engine" in what:
         print(json.dumps(trace_engine(out_dir)), flush=True)
     if "cli" in what:
-        for line in trace_cli(out_dir, work, args.loci):
-            print(json.dumps(line), flush=True)
+        print(json.dumps(trace_cli(work, args.loci)), flush=True)
     if "preprocess" in what:
         for line in trace_preprocess(out_dir, work):
             print(json.dumps(line), flush=True)

@@ -38,9 +38,21 @@ and in every Python process it starts through
                        rates of 0.05 for every base inside homopolymer runs
                        (the gap panels built on the card); each case names
                        K4's tile; timed with CUDA events.
+  (a''') contraction_vs_plain
+                       the engine's grid contraction (csrc/lse_contract.cu)
+                       against its plain version on the card, on every case
+                       of ``bench_utils.lse_contract_args``: the call's
+                       shapes (F [1024, 8, 101, 15] with S expanded over B,
+                       a B = 1 slice of a slab, the swapped [1024, 1, 15,
+                       101]), -inf rows and columns, branches in no class,
+                       more branches than classes, and Gv = Gu = 1001 (-inf
+                       alike, LC_TOL); the call's shapes and the large grid
+                       timed with CUDA events beside their bound, and a
+                       window's four summed.
   (b) engine           the tumor-normal engine (resolution 0.01) on 32768
                        synthetic loci at depth 64, every output copied to the
-                       host; K1 must launch twice per call; the first 1024 loci
+                       host; K1 must launch twice per call and the contraction
+                       four times; the first 1024 loci
                        are re-run with the plain version on the card and every
                        output compared.
   (c) cli              100,000 synthetic tumor/normal loci through
@@ -197,9 +209,15 @@ and in every Python process it starts through
                        VLT_WIRE=flat selects at import): the calls VCF byte
                        for byte phase (c)'s, K1's launches counted.
 
+The contraction's launches are counted in phases (c), (f) (by mode and in
+its CLI run), (j) (the ranks' own counts included) and (k5); each of them
+but (f)'s contamination cycle, which has no tree node, must launch it.
+
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
 launches counted in phases (c), (f), (h), (i), (j) (the ranks' own counts
-included) and (k5), the wavefront kernel by flavour with those of phase (k),
+included) and (k5), the contraction with those of its phases and its time,
+plain time and bound at the B = 8 shape (and a window's, ``window``), the
+wavefront kernel by flavour with those of phase (k),
 its time at WAVEFRONT_MAIN_SHAPE (and with the band, ``banded``), K2-K4 with
 those counted in
 phase (d)'s preprocess steps, phase (e)'s, phase (g)'s workers and phase
@@ -238,6 +256,16 @@ K4_REPLACES = "varlociraptor_tpu/ops/pallas_pairhmm.py:296"
 # x max(1, |x|): f32 column sums in another order, the D scan in another
 # association; -1e30 (impossible) must match exactly
 K23_TOL = 1e-4
+LC_SOURCE = "varlociraptor_tpu_torch/csrc/lse_contract.cu"
+LC_REPLACES = "varlociraptor_tpu/ops/posterior.py:645"
+# x max(1, |x|): f32 exps and logs, the sum over v in another order than the
+# einsum's; -inf must fall in the same places
+LC_TOL = 2e-5
+# phase (a''')'s timed cases: the call's three kinds of contraction (a
+# window makes one "unit", two "map" and one "afd_swapped") and a grid larger
+# than a block's shared memory
+LC_TIMED = ("unit", "map", "afd_swapped", "large")
+LC_WINDOW = {"unit": 1, "map": 2, "afd_swapped": 1}
 # phase (a')'s timed pair-HMM shapes (items x allele x read): the bench
 # shapes, and the K2 and K3 launch shapes that carry the most cells on phase
 # (d)'s main path (their median items per launch, the panel width, 100-base
@@ -452,6 +480,66 @@ def phase_kernel_vs_plain(engine, bench_loci=32768, window_loci=1024, timer=cuda
             "max_abs_err": worst}, bench
 
 
+def lc_roofline(F, S, table):
+    """The contraction's bound on its inputs: F, the distinct rows of S (an
+    S expanded over B is read once) and the output once at the memory
+    rate; operations an FMA (2) per (l, b, branch, v of its class, u) and
+    an exp per (l, b, class, v of the class, u)."""
+    L, B, Gv, Gu = F.shape
+    NB = S.shape[2]
+    sizes = table.masks.sum(dim=1).tolist()
+    cls = table.branch_class.tolist()
+    fma = sum(sizes[k] for k in cls if k >= 0)
+    exps = sum(sizes[k] for k in set(cls) if k >= 0)
+    s_rows = L * (B if S.stride(1) else 1) * NB
+    return roofline(L * B * Gu * (2 * fma + exps),
+                    4 * (F.numel() + s_rows * Gv + L * B * NB * Gu))
+
+
+def phase_contraction_vs_plain(timer=cuda_ms):
+    """(a'''): the engine's grid contraction (csrc/lse_contract.cu) against
+    its plain version on the card, on every case of
+    ``bench_utils.lse_contract_args``: -inf in the same places, the rest
+    within LC_TOL x max(1, |x|); the LC_TIMED cases timed with CUDA events
+    (the card held ahead of the host) beside their bound, and a window's
+    four at the call's shapes summed."""
+    import numpy as np
+
+    from varlociraptor_tpu_torch.bench_utils import LSE_CONTRACT_CASES, lse_contract_args
+    from varlociraptor_tpu_torch.ops import lse_contract as lc
+
+    cases = {}
+    for name in LSE_CONTRACT_CASES:
+        F, S, table = lse_contract_args(name, "cuda", seed=5)
+        n0 = lc.lse_contract.launches
+        g = lc.lse_contract(F, S, table).cpu().numpy()
+        if lc.lse_contract.launches != n0 + 1:
+            raise PhaseError(f"contraction {name}: the kernel did not launch once")
+        r = lc.lse_contract_reference(F, S, table.per).cpu().numpy()
+        fin = np.isfinite(r)
+        if not (np.array_equal(np.isfinite(g), fin) and np.array_equal(g[~fin], r[~fin])):
+            raise PhaseError(f"contraction {name}: -inf differs from the plain version")
+        err = np.abs(g[fin] - r[fin])
+        rel = float(np.max(err / np.maximum(1.0, np.abs(r[fin])))) if fin.any() else 0.0
+        if not rel <= LC_TOL:
+            raise PhaseError(f"contraction {name}: rel err {rel} > {LC_TOL}")
+        case = {"case": name, "F": list(F.shape), "F_strides": list(F.stride()),
+                "S": list(S.shape), "S_strides": list(S.stride()),
+                "classes": table.masks.shape[0], "groups": table.groups.shape[0],
+                "not_finite": int((~fin).sum()),
+                "max_abs_err": float(err.max()) if fin.any() else 0.0, "max_rel_err": rel}
+        if name in LC_TIMED:
+            case["ms"] = timer(lambda: lc.lse_contract(F, S, table), 100, ahead=True)
+            case["plain_ms"] = timer(lambda: lc.lse_contract_reference(F, S, table.per), 5)
+            case.update(lc_roofline(F, S, table))
+        cases[name] = case
+    window = {k: sum(cases[c][k] * n for c, n in LC_WINDOW.items())
+              for k in ("ms", "plain_ms", "bound_ms")}
+    return {"phase": "contraction_vs_plain", "tol_rel": LC_TOL, "cases": list(cases.values()),
+            "window": {**window, "launches": sum(LC_WINDOW.values())},
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values())}, cases["unit"]
+
+
 def phase_engine(engine, L=32768, n_plain=1024):
     import numpy as np
     import torch
@@ -459,18 +547,23 @@ def phase_engine(engine, L=32768, n_plain=1024):
     from varlociraptor_tpu_torch.bench_utils import engine_inputs
     from varlociraptor_tpu_torch.compare import compare_outputs
     from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops import lse_contract as lc
 
     inputs = engine_inputs(engine, n_loci=L, depth=64, seed=0)
     engine.run(*inputs)  # warm-up: first launches, allocator growth
-    n0 = k1.ll_classes.launches
+    n0, c0 = k1.ll_classes.launches, lc.lse_contract.launches
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         out = engine.run(*inputs)  # every output lands on the host
         times.append(time.perf_counter() - t0)
     launches = k1.ll_classes.launches - n0
+    contractions = lc.lse_contract.launches - c0
     if launches != 2 * len(times):
         raise PhaseError(f"engine: K1 launched {launches} times in {len(times)} calls")
+    if contractions != 4 * len(times):
+        raise PhaseError(f"engine: the contraction launched {contractions} times in "
+                         f"{len(times)} calls")
     if out["posteriors"].shape != (L, engine.n_events) or out["af"].shape != (L, engine.n_samples):
         raise PhaseError("engine: output shapes")
     if not (np.isfinite(out["marginal"]).all() and np.isfinite(out["af"]).all()):
@@ -488,6 +581,7 @@ def phase_engine(engine, L=32768, n_plain=1024):
         "U": len(engine.pair_class[engine.pairs[0][0]][0]),
         "seconds": times, "loci_per_s": L / best,
         "k1_launches_per_call": launches // len(times),
+        "contractions_per_call": contractions // len(times),
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
                         if engine.device.type == "cuda" else None),
         "vs_plain_head": {"n_loci": n_plain, "max_rel": info["max_rel"], "af_max": info["af_max"],
@@ -522,18 +616,20 @@ def phase_cli(work, n_loci=100_000, n_cpu=2000, device="cuda"):
     from varlociraptor_tpu_torch.bench_utils import synth_observation_files
     from varlociraptor_tpu_torch.compare import compare_vcf_text, vcf_record_keys
     from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops import lse_contract as lc
 
     t0 = time.perf_counter()
     tumor, normal, truth = synth_observation_files(work / "obs", n_loci=n_loci, seed=0)
     synth_s = time.perf_counter() - t0
     calls = work / "calls.vcf"
     k1.ll_classes.launches = 0  # main path starts here
+    lc.lse_contract.launches = 0
     t0 = time.perf_counter()
     rc = cli.run(["call", "variants", "tumor-normal", "--tumor", tumor,
                   "--normal", normal, "--purity", "0.75", "--device", device,
                   "--output", str(calls)])
     call_s = time.perf_counter() - t0
-    launches = k1.ll_classes.launches
+    launches, contractions = k1.ll_classes.launches, lc.lse_contract.launches
     filtered = work / "somatic.fdr.vcf"
     t0 = time.perf_counter()
     rc |= cli.run(["filter-calls", "control-fdr", str(calls), "--events",
@@ -549,8 +645,9 @@ def phase_cli(work, n_loci=100_000, n_cpu=2000, device="cuda"):
     recall = float(np.isin(truth["somatic"], kept_pos).mean())
     if n_called != n_loci:
         raise PhaseError(f"cli: {n_called} records called, expected {n_loci}")
-    if len(kept_pos) == 0 or launches == 0:
-        raise PhaseError(f"cli: kept {len(kept_pos)}, K1 launches {launches}")
+    if len(kept_pos) == 0 or launches == 0 or contractions == 0:
+        raise PhaseError(f"cli: kept {len(kept_pos)}, K1 launches {launches}, "
+                         f"contractions {contractions}")
 
     # CPU re-call of the first n_cpu loci
     sub_dir = work / "obs2k"
@@ -571,7 +668,8 @@ def phase_cli(work, n_loci=100_000, n_cpu=2000, device="cuda"):
         "planted_somatic": int(len(truth["somatic"])),
         "planted_somatic_recall": recall,
         "synth_s": synth_s, "call_s": call_s, "call_loci_per_s": n_loci / call_s,
-        "fdr_s": fdr_s, "k1_launches": launches,
+        "fdr_s": fdr_s, "k1_launches": launches, "contractions": contractions,
+        "contractions_per_window": contractions / -(-n_loci // 1024),
         "cpu_2k_call_s": cpu_s, "cpu_vs_cuda_topk_swapped_lines": swapped,
     }, launches
 
@@ -1175,6 +1273,7 @@ def mode_run(name, engine, n_loci, table):
     from varlociraptor_tpu_torch.bench_utils import engine_inputs
     from varlociraptor_tpu_torch.compare import compare_outputs
     from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops import lse_contract as lc
 
     inputs = engine_inputs(engine, n_loci=n_loci, depth=64, seed=0)
     pj = None
@@ -1184,6 +1283,7 @@ def mode_run(name, engine, n_loci, table):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1.ll_classes.launches = 0  # main path starts here
+    lc.lse_contract.launches = 0
     engine.loop_steps = 0
     ms, wall, runs = [], [], 3
     with k1_shapes() as shapes:
@@ -1197,11 +1297,14 @@ def mode_run(name, engine, n_loci, table):
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
             ms.append(start.elapsed_time(end))
-    launches = k1.ll_classes.launches
+    launches, contractions = k1.ll_classes.launches, lc.lse_contract.launches
     steps = engine.loop_steps
     peak = torch.cuda.max_memory_allocated()
     if launches == 0 or launches != sum(shapes.values()) or launches % runs:
         raise PhaseError(f"engine_modes {name}: K1 launched {launches} times in {runs} calls")
+    if contractions % runs:
+        raise PhaseError(f"engine_modes {name}: the contraction launched {contractions} "
+                         f"times in {runs} calls")
     if out["posteriors"].shape != (n_loci, engine.n_events) or out["af"].shape != (
             n_loci, engine.n_samples):
         raise PhaseError(f"engine_modes {name}: output shapes")
@@ -1229,11 +1332,12 @@ def mode_run(name, engine, n_loci, table):
         "k1_shapes": [{"N": N, "U": U, "D": D, "per_call": c // runs}
                       for (N, U, D), c in sorted(shapes.items())],
         "loop_steps_per_call": steps // runs,
+        "contractions_per_call": contractions // runs,
         "vs_plain_head": {"n_loci": min(MODES_PLAIN, n_loci), "seconds": plain_s,
                           "max_rel": info["max_rel"], "af_max": info["af_max"],
                           "af_flat": len(info["af_flat"]),
                           "topk_swaps": len(info["topk_swaps"])},
-    }, launches
+    }, launches, contractions
 
 
 def prior_table_seconds():
@@ -1266,9 +1370,10 @@ def phase_engine_modes(work):
     from varlociraptor_tpu_torch import cli
     from varlociraptor_tpu_torch.compare import compare_vcf_text, vcf_record_keys
     from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops import lse_contract as lc
 
     res = {"phase": "engine_modes", "depth": 64, "resolution": 0.01, "modes": []}
-    launches = 0
+    launches, contractions = 0, {}
     scenario, tn = bu.tumor_normal_engine(resolution=0.01, purity=0.75, device="cuda")
     table, table_s = bu.full_prior_table(scenario, tn)
     res["prior_table_tumor_normal"] = {"cells": int(table.size), "shape": list(table.shape),
@@ -1278,9 +1383,13 @@ def phase_engine_modes(work):
         ("l2fc", lambda: bu.l2fc_engine(device="cuda"), None),
         ("cyclic", lambda: bu.cyclic_engine(device="cuda"), None),
     ):
-        rec, n = mode_run(name, build(), MODE_LOCI[name], tbl)
+        rec, n, contractions[name] = mode_run(name, build(), MODE_LOCI[name], tbl)
         res["modes"].append(rec)
         launches += n
+    # the pure cycle has no tree node: its cyclic reducer contracts nothing
+    if not (contractions["full_prior"] and contractions["l2fc"]):
+        raise PhaseError(f"engine_modes: the contraction must launch in full_prior and "
+                         f"l2fc: {contractions}")
 
     # the CLI: tumor-normal with --full-prior, then its head on the CPU
     tumor, normal, _ = bu.synth_observation_files(work / "fp_obs", n_loci=MODES_CLI_LOCI, seed=1)
@@ -1290,15 +1399,16 @@ def phase_engine_modes(work):
     argv = ["call", "variants", "generic", "--scenario", str(yaml_path), "--obs",
             f"tumor={tumor}", f"normal={normal}", "--full-prior"]
     k1.ll_classes.launches = 0  # main path starts here
+    lc.lse_contract.launches = 0
     t0 = time.perf_counter()
     rc = cli.run(argv + ["--device", "cuda", "--output", str(calls)])
     call_s = time.perf_counter() - t0
-    cli_launches = k1.ll_classes.launches
+    cli_launches, contractions["cli"] = k1.ll_classes.launches, lc.lse_contract.launches
     calls_text = calls.read_text()
     n_called = len(vcf_record_keys(calls_text))
-    if rc != 0 or n_called != MODES_CLI_LOCI or cli_launches == 0:
+    if rc != 0 or n_called != MODES_CLI_LOCI or cli_launches == 0 or not contractions["cli"]:
         raise PhaseError(f"engine_modes cli: rc {rc}, {n_called} records, "
-                         f"{cli_launches} K1 launches")
+                         f"{cli_launches} K1 launches, {contractions['cli']} contractions")
     launches += cli_launches
     sub_dir = work / "fp_obs2k"
     sub_dir.mkdir(parents=True, exist_ok=True)
@@ -1318,10 +1428,12 @@ def phase_engine_modes(work):
         "n_loci": MODES_CLI_LOCI, "records": n_called, "call_s": call_s,
         "call_loci_per_s": MODES_CLI_LOCI / call_s, "k1_launches": cli_launches,
         "k1_launches_per_window": cli_launches / windows,
+        "contractions_per_window": contractions["cli"] / windows,
         "cpu_2k_call_s": cpu_s, "cpu_vs_cuda_topk_swapped_lines": swapped,
     }
     res["prior_table_trio"] = prior_table_seconds()
     res["k1_launches"] = launches
+    res["contractions"] = contractions
     return res, launches
 
 
@@ -1883,6 +1995,37 @@ def capture_testcase(w, obs, scenario, prefix, locus):
     return time.perf_counter() - t0
 
 
+def event_tie(a, b, rel_tol):
+    """Whether two calls VCF records differ only where the call's events
+    tie: with every sample's AF and AFD masked they agree within
+    ``rel_tol``, and two or more events share the smallest PROB_ value,
+    printed alike in both.  The MAP event, and with it each sample's MAP AF
+    and AFD, then turns on the last bit of float32 sums that run in another
+    order on the card and on the CPU (PERF.md, PR 18: a duplication with
+    one uninformative read, where a float64 sum of the same terms sides
+    with the card)."""
+    from varlociraptor_tpu_torch.compare import compare_vcf_text
+
+    def masked(line):
+        f = line.split("\t")
+        keys = f[8].split(":")
+        f[9:] = [":".join("." if k in ("AF", "AFD") else v for k, v in zip(keys, s.split(":")))
+                 for s in f[9:]]
+        return "\t".join(f)
+
+    def top(line):
+        probs = dict(kv.split("=", 1) for kv in line.split("\t")[7].split(";")
+                     if kv.startswith("PROB_"))
+        best = min(probs.values(), key=float)
+        return sorted(k for k, v in probs.items() if v == best)
+
+    fa, fb = a.split("\t"), b.split("\t")
+    if a.startswith("#") or len(fa) < 10 or len(fa) != len(fb) or fa[8] != fb[8]:
+        return False
+    problems, _ = compare_vcf_text(masked(a), masked(b), rel_tol=rel_tol)
+    return not problems and len(top(a)) >= 2 and top(a) == top(b)
+
+
 def phase_kinds_and_testcases(work):
     """(i): (i1) the all-kinds world through estimate, preprocess on the
     card (and the normal's head again with the other gap model, so that K2
@@ -2007,8 +2150,16 @@ def phase_kinds_and_testcases(work):
                 rec["replay_launches"] = {k: v - before[k] for k, v in counts().items()}
                 rec["replay_shapes"] = {fn.split("_")[-1]: sorted(s["by_shape"]) for fn, s in
                                         replay["shapes"].items() if s["by_shape"]}
-        # 30x loci of a BAM world, as phase (h2)'s: WORLD_VCF_TOL
+        # 30x loci of a BAM world, as phase (h2)'s: WORLD_VCF_TOL; a record
+        # whose events tie may take another MAP event (event_tie)
         problems, _ = compare_vcf_text(texts["cpu"], texts["cuda"], rel_tol=WORLD_VCF_TOL)
+        if problems and len(texts["cpu"].splitlines()) == len(texts["cuda"].splitlines()):
+            pairs = [(n, a, b) for n, (a, b) in enumerate(
+                zip(texts["cpu"].splitlines(), texts["cuda"].splitlines()), 1) if a != b]
+            ties = [n for n, a, b in pairs if compare_vcf_text(a, b, rel_tol=WORLD_VCF_TOL)[0]
+                    and event_tie(a, b, WORLD_VCF_TOL)]
+            problems = [p for p in problems if int(p.split(":")[0][5:]) not in ties]
+            rec["event_tie_lines"] = ties
         if problems or not rec["records"] or not rec["replay_launches"]["ll_classes"]:
             raise PhaseError(f"kinds_and_testcases replay {kind}: {problems[:3]}, "
                              f"{rec['records']} records, launches {rec['replay_launches']}")
@@ -2089,6 +2240,7 @@ def sharded_rank(spec):
     from varlociraptor_tpu_torch.filtration.fdr import control_fdr_sharded
     from varlociraptor_tpu_torch.grammar.scenario import tumor_normal_scenario
     from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops import lse_contract as lc
     from varlociraptor_tpu_torch.parallel.sharding import (
         all_gather_rows, distributed_mesh, run_sharded,
     )
@@ -2109,15 +2261,16 @@ def sharded_rank(spec):
     run_sharded(engine, mesh, *local)  # warm-up: first launches, allocator growth
     per_shard = []
     with shard_launches(per_shard):
-        k1.ll_classes.launches = 0  # main path
+        k1.ll_classes.launches = lc.lse_contract.launches = 0  # main path
         t0 = time.perf_counter()
         out = run_sharded(engine, mesh, *local)
         engine_s = time.perf_counter() - t0
         rep.update(engine_s=engine_s, engine_loci_per_s=half / engine_s,
                    engine_k1_launches=k1.ll_classes.launches,
-                   engine_k1_per_shard=list(per_shard))
+                   engine_k1_per_shard=list(per_shard),
+                   engine_contractions=lc.lse_contract.launches)
         per_shard.clear()
-        k1.ll_classes.launches = 0  # main path
+        k1.ll_classes.launches = lc.lse_contract.launches = 0  # main path
         obs = dict(zip(("tumor", "normal"), spec["obs"][rank]))
         t0 = time.perf_counter()
         n = call_generic(tumor_normal_scenario(0.75), obs, spec["calls"][rank],
@@ -2125,6 +2278,7 @@ def sharded_rank(spec):
         call_s = time.perf_counter() - t0
     rep.update(call_loci=n, call_s=call_s, call_loci_per_s=n / call_s,
                call_k1_launches=k1.ll_classes.launches, call_shards=len(per_shard),
+               call_contractions=lc.lse_contract.launches,
                call_k1_per_shard=sorted(set(per_shard)))
     t0 = time.perf_counter()
     rep["fdr_kept"] = control_fdr_sharded([spec["calls"][rank]], spec["kept"][rank],
@@ -2240,14 +2394,15 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
     from varlociraptor_tpu_torch.bench_utils import engine_inputs, region_shards
     from varlociraptor_tpu_torch.compare import compare_outputs, compare_vcf_text, vcf_record_keys
     from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops import lse_contract as lc
     from varlociraptor_tpu_torch.parallel.dryrun import dryrun_multichip
     from varlociraptor_tpu_torch.parallel.sharding import locus_mesh, run_sharded
 
     res = {"phase": "sharded", "nccl_across_cards": NCCL_ACROSS_CARDS}
-    launches = {}
+    launches, contractions = {}, {}
 
     # (j1) the dry run over every card of the machine
-    k1.ll_classes.launches = 0  # main path
+    k1.ll_classes.launches = lc.lse_contract.launches = 0  # main path
     t0 = time.perf_counter()
     try:
         res["dryrun"] = dryrun_multichip(
@@ -2256,6 +2411,7 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
         raise PhaseError(f"sharded: dryrun_multichip: {e}") from None
     res["dryrun"]["seconds"] = time.perf_counter() - t0
     launches["dryrun"] = k1.ll_classes.launches
+    contractions["dryrun"] = lc.lse_contract.launches
 
     # (j2) one process, two shards on cuda:0
     # each timed as phase (b) times the engine: best of J2_REPEATS after a
@@ -2271,17 +2427,21 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
     run_sharded(engine, mesh, *inputs)
     sharded_s, per_shard = [], []
     with shard_launches(per_shard):
-        k1.ll_classes.launches = 0  # main path
+        k1.ll_classes.launches = lc.lse_contract.launches = 0  # main path
         for _ in range(J2_REPEATS):
             t0 = time.perf_counter()
             out = run_sharded(engine, mesh, *inputs)
             sharded_s.append(time.perf_counter() - t0)
     launches["two_shards"] = k1.ll_classes.launches
+    contractions["two_shards"] = lc.lse_contract.launches
     problems, info = compare_outputs(single, out)
     if problems:
         raise PhaseError("sharded: two shards vs engine.run: " + "; ".join(problems[:5]))
     if per_shard != [2, 2] * J2_REPEATS:
         raise PhaseError(f"sharded: K1 launched {per_shard} times per shard, not twice in each")
+    if contractions["two_shards"] != 4 * len(per_shard):
+        raise PhaseError(f"sharded: the contraction launched {contractions['two_shards']} "
+                         f"times in {len(per_shard)} shards, not 4 in each")
     res["two_shards"] = {
         "n_loci": SHARDED_LOCI, "depth": 64, "resolution": 0.01,
         "devices": [str(d) for d in mesh.devices], "seconds": sharded_s,
@@ -2313,8 +2473,9 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
         if rep["jax_modules"] or rep["backend"] != "gloo":
             raise PhaseError(f"sharded: rank {rep['rank']}: {rep}")
         if rep["engine_k1_per_shard"] != [2] or rep["call_k1_launches"] == 0 \
+                or rep["engine_contractions"] != 4 or rep["call_contractions"] == 0 \
                 or rep["call_loci"] != half:
-            raise PhaseError(f"sharded: rank {rep['rank']} launched K1 {rep}")
+            raise PhaseError(f"sharded: rank {rep['rank']} launched K1 or the contraction {rep}")
     parts = [dict(np.load(p)) for p in spec["out"]]
     merged = {k: np.concatenate([part[k] for part in parts]) for k in parts[0]}
     problems, info = compare_outputs(single, merged)
@@ -2337,10 +2498,13 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
                     "calls_vs_single_topk_swapped_lines": len(swapped),
                     "kept": len(kept)}
     launches["ranks"] = sum(r["engine_k1_launches"] + r["call_k1_launches"] for r in reports)
+    contractions["ranks"] = sum(r["engine_contractions"] + r["call_contractions"]
+                                for r in reports)
 
     # (j4) NCCL, one rank
     res["nccl_one_rank"] = nccl_one_rank()
     res["k1_launches"] = launches
+    res["contractions"] = contractions
     return res, sum(launches.values())
 
 
@@ -2554,6 +2718,7 @@ def phase_wavefront_routes(work, serial, serial_hp, cli_files, device="cuda"):
     from varlociraptor_tpu_torch.calling import fastcall
     from varlociraptor_tpu_torch.io import native
     from varlociraptor_tpu_torch.ops import ll_classes as k1
+    from varlociraptor_tpu_torch.ops import lse_contract as lc
 
     res = {"phase": "wavefront_routes", "native_host_library": native.available()}
     wf_launches = dict.fromkeys(WAVEFRONT_FLAVOURS, 0)
@@ -2619,7 +2784,7 @@ def phase_wavefront_routes(work, serial, serial_hp, cli_files, device="cuda"):
     calls = work / "calls_flat.vcf"
     saved = fastcall.ColumnarCaller.wire_mode
     fastcall.ColumnarCaller.wire_mode = "flat"
-    k1.ll_classes.launches = 0
+    k1.ll_classes.launches = lc.lse_contract.launches = 0
     try:
         t0 = time.perf_counter()
         rc = cli_quiet(["call", "variants", "tumor-normal", "--tumor", cli_files["tumor"],
@@ -2628,12 +2793,13 @@ def phase_wavefront_routes(work, serial, serial_hp, cli_files, device="cuda"):
         flat_s = time.perf_counter() - t0
     finally:
         fastcall.ColumnarCaller.wire_mode = saved
-    k1_flat = k1.ll_classes.launches
-    if rc != 0 or k1_flat == 0:
-        raise PhaseError(f"flat wire: the call returned {rc}, K1 launches {k1_flat}")
+    k1_flat, lc_flat = k1.ll_classes.launches, lc.lse_contract.launches
+    if rc != 0 or k1_flat == 0 or lc_flat == 0:
+        raise PhaseError(f"flat wire: the call returned {rc}, K1 launches {k1_flat}, "
+                         f"contractions {lc_flat}")
     if calls.read_bytes() != Path(cli_files["calls"]).read_bytes():
         raise PhaseError("flat wire: the calls VCF differs from the wire route's")
-    res["flat_wire"] = {"call_s": flat_s, "k1_launches": k1_flat,
+    res["flat_wire"] = {"call_s": flat_s, "k1_launches": k1_flat, "contractions": lc_flat,
                         "identical_to_wire": True}
     res["wavefront_launches"] = wf_launches
     res["wavefront_launches_by_part"] = by_part
@@ -2692,6 +2858,8 @@ def main():
     emit(a2)
     a3, k4_bench, k4_main = phase_positional_vs_plain()
     emit(a3)
+    a4, lc_bench = phase_contraction_vs_plain()
+    emit(a4)
     emit(phase_engine(engine))
     c, launches = phase_cli(work)
     emit(c)
@@ -2739,6 +2907,9 @@ def main():
     timing = lambda case: {k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
     main_shape = lambda case: {"main_path_shape": {  # noqa: E731
         **{k: case[k] for k in ("B", "Xp", "Yp", "tile")}, **timing(case)}}
+    lc_by_phase = {"cli": c["contractions"], "engine_modes": f["contractions"],
+                   "sharded": j["contractions"],
+                   "wavefront_routes": k["flat_wire"]["contractions"]}
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
@@ -2771,7 +2942,14 @@ def main():
         **timing(wf_timed[flavour]["main"]), "library_ms": None,
         "shape": [wf_timed[flavour]["main"][k] for k in ("B", "Xp", "Yp")],
         "banded": timing(wf_timed[flavour]["main_banded"]),
-    } for flavour in WAVEFRONT_FLAVOURS]})
+    } for flavour in WAVEFRONT_FLAVOURS] + [{
+        "name": "lse_contract", "route": "cuda", "source": LC_SOURCE, "replaces": LC_REPLACES,
+        "launches": sum(n if isinstance(n, int) else sum(n.values())
+                        for n in lc_by_phase.values()),
+        "launches_by_phase": lc_by_phase, "max_abs_err": a4["max_abs_err"],
+        **timing(lc_bench), "library_ms": None, "shape": lc_bench["F"],
+        "window": a4["window"],
+    }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels on the card: K1 (csrc/ll_classes.cu),
-K2, K3 and K4 (csrc/pairhmm_column.cu), each of K2-K4 at every tile.
+K2, K3 and K4 (csrc/pairhmm_column.cu), each of K2-K4 at every tile, and the
+engine's grid contraction (csrc/lse_contract.cu).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false.  On a machine with an NVIDIA card and nvcc:
@@ -10,7 +11,9 @@ Tolerances: K1 against its plain torch version 5e-5 * max(1, |x|) with the
 same finiteness (float32 logs, read sums in another order); K2, K3 and K4
 against theirs 1e-4 * max(1, |x|) (float32 column sums in another order, the
 D scan in another association), the same finiteness and -1e30 exactly where
-the plain version gives it; the engine on the card against the engine on
+the plain version gives it; the grid contraction against its plain version
+2e-5 * max(1, |x|) with -inf in the same places (float32 exps and logs, the
+sum over v in another order than the einsum's); the engine on the card against the engine on
 the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py, in
 tumor-normal and in chip_smoke.py phase (f)'s modes (--full-prior, l2fc,
 cyclic contamination); the legacy per-WorkItem caller's VCF on the card
@@ -33,6 +36,7 @@ import torch
 
 from varlociraptor_tpu_torch.bench_utils import (
     K1_EDGE_CASES,
+    LSE_CONTRACT_CASES,
     PAIRHMM_TILE_WIDTHS,
     cyclic_engine,
     engine_inputs,
@@ -43,16 +47,22 @@ from varlociraptor_tpu_torch.bench_utils import (
     pairhmm_shape_items,
     pairhmm_tile_items,
     l2fc_engine,
+    lse_contract_args,
+    rho_engine,
     tumor_normal_engine,
 )
 from varlociraptor_tpu_torch.compare import compare_outputs
 from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams
 from varlociraptor_tpu_torch.ops import ll_classes as k1
+from varlociraptor_tpu_torch.ops import lse_contract as lc
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc
 
 pytestmark = pytest.mark.cuda
 
 TOL = 5e-5
+# the grid contraction against its plain version: float32 exps and logs,
+# the sum over v in another order than the einsum's
+LSE_TOL = 2e-5
 PAIRHMM_TOL = 1e-4
 # log gap params (t_mi, t_md, t_ii, t_dd): the default zero-extension model,
 # and ONT-like finite extensions (tests/test_pallas_pairhmm.py)
@@ -138,13 +148,57 @@ def test_k1_wrapper_checks_its_inputs(card):
     assert k1.ll_classes.launches == n0
 
 
+@pytest.mark.parametrize("name", LSE_CONTRACT_CASES)
+def test_lse_contract_kernel_matches_plain(card, name):
+    """The grid contraction against its plain version on the card
+    (bench_utils.lse_contract_args): the call's four shapes (the B = 8
+    elimination with S expanded over B, a B = 1 slice of a slab, the swapped
+    F), -inf rows and columns and a one-point class, branches in no class,
+    more branches than classes and groups, and a grid larger than a block's
+    shared memory."""
+    F, S, table = lse_contract_args(name, card)
+    n0 = lc.lse_contract.launches
+    got = lc.lse_contract(F, S, table)
+    assert lc.lse_contract.launches == n0 + 1
+    ref = lc.lse_contract_reference(F, S, table.per)
+    torch.cuda.synchronize()
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    assert g.shape == r.shape and got.dtype == torch.float32
+    fin = np.isfinite(r)
+    assert np.array_equal(np.isfinite(g), fin)
+    assert np.array_equal(g[~fin], r[~fin])
+    if name == "neg_inf":
+        assert not fin.all()
+    err = np.abs(g[fin] - r[fin]) / np.maximum(1.0, np.abs(r[fin]))
+    assert err.max(initial=0.0) <= LSE_TOL, err.max()
+
+
+def test_lse_contract_wrapper_checks_its_inputs(card):
+    F, S, table = lse_contract_args("no_class", card, L=4)
+    _, _, other = lse_contract_args("nb_gt_k", card, L=4)
+    _, _, on_cpu = lse_contract_args("no_class", "cpu", L=4)
+    n0 = lc.lse_contract.launches
+    with pytest.raises(TypeError, match="float32"):
+        lc.lse_contract(F.double(), S, table)
+    with pytest.raises(ValueError, match="rank"):
+        lc.lse_contract(F[0], S, table)
+    with pytest.raises(ValueError, match="do not agree"):
+        lc.lse_contract(F, S[..., :-1], table)
+    with pytest.raises(ValueError, match="class table"):
+        lc.lse_contract(F, S, other)
+    with pytest.raises(ValueError, match="on cpu"):
+        lc.lse_contract(F, S, on_cpu)
+    assert lc.lse_contract.launches == n0
+
+
 def test_engine_on_the_card_matches_the_cpu(card):
     _, gpu = tumor_normal_engine(resolution=0.01, device=card)
     _, cpu = tumor_normal_engine(resolution=0.01, device="cpu")
     inputs = engine_inputs(cpu, n_loci=96, depth=32, seed=5)
-    n0 = k1.ll_classes.launches
+    n0, c0 = k1.ll_classes.launches, lc.lse_contract.launches
     got = gpu.run(*inputs)
     assert k1.ll_classes.launches == n0 + 2
+    assert lc.lse_contract.launches == c0 + 4
     ref = cpu.run(*inputs)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
     assert not problems, problems[:5]
@@ -199,26 +253,32 @@ def test_sharded_call_on_the_card_equals_the_panels_route(card, tmp_path, monkey
 def _mode_engine(name, device):
     """(engine, joint prior table or None) of chip_smoke.py phase (f)'s
     modes: (f1) tumor-normal with --full-prior, (f2) the l2fc scenario,
-    (f3) the three-sample contamination cycle."""
+    (f3) the three-sample contamination cycle; and the cycle with a tree
+    node, whose cyclic reducer runs the grid contraction."""
     if name == "full_prior":
         scenario, engine = tumor_normal_engine(resolution=0.01, device=device)
         return engine, full_prior_table(scenario, engine)[0]
     if name == "l2fc":
         return l2fc_engine(device=device), None
+    if name == "cyclic_tree":
+        return rho_engine(device=device), None
     return cyclic_engine(device=device), None
 
 
-@pytest.mark.parametrize("name,k1_per_call", [("full_prior", 2), ("l2fc", 3), ("cyclic", 3)])
-def test_engine_modes_on_the_card_match_the_cpu(card, name, k1_per_call):
+@pytest.mark.parametrize("name,k1_per_call,contractions_per_call", [
+    ("full_prior", 2, 3), ("l2fc", 3, 10), ("cyclic", 3, 0), ("cyclic_tree", 4, 6)])
+def test_engine_modes_on_the_card_match_the_cpu(card, name, k1_per_call,
+                                                contractions_per_call):
     gpu, table = _mode_engine(name, card)
     cpu, _ = _mode_engine(name, "cpu")
     L = 24
     inputs = engine_inputs(cpu, n_loci=L, depth=32, seed=6)
     pj = None if table is None else np.ascontiguousarray(
         np.broadcast_to(table, (L,) + table.shape))
-    n0 = k1.ll_classes.launches
+    n0, c0 = k1.ll_classes.launches, lc.lse_contract.launches
     got = gpu.run(*inputs, ln_prior_joint=pj)
     assert k1.ll_classes.launches == n0 + k1_per_call
+    assert lc.lse_contract.launches == c0 + contractions_per_call
     ref = cpu.run(*inputs, ln_prior_joint=pj)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
     assert not problems, problems[:5]

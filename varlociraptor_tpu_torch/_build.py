@@ -126,5 +126,9 @@ def load():
             # flavour reads nothing), out, B, X, Y
             lib.vlt_pairhmm_wavefront.argtypes = [i] + [p] * 13 + [i] * 3 + [p]
             lib.vlt_pairhmm_wavefront.restype = i
+            # the grid contraction: F, S, groups, masks, out; L, B, Gv, Gu,
+            # NB, K, G, the group width; F's and S's strides
+            lib.vlt_lse_contract.argtypes = [p] * 5 + [i] * 8 + [ctypes.c_longlong] * 8 + [p]
+            lib.vlt_lse_contract.restype = i
             _lib = lib
         return _lib

@@ -8,6 +8,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from .evidence.observation import F, N_FEATURES
 from .grammar.compiler import compile_scenario_events
@@ -172,6 +173,31 @@ def cyclic_engine(device="cuda"):
     )
 
 
+def rho_engine(device="cuda"):
+    """Engine of a contamination cycle with a tree node (a by b, b by c, c
+    by a, fraction 0.2 each, and d by b at 0.15) at resolution 0.01 with the
+    events absent and present: the cyclic reducer eliminates d into b, and
+    walks b down to d where d's grid is kept."""
+    from .ops.event_program import BranchSpec, EventSpec, SpectrumSpec, absent_event
+
+    present = EventSpec(
+        name="present",
+        branches=(BranchSpec(spectra=tuple(
+            SpectrumSpec.from_range(0.0, 1.0, left_exclusive=True)
+            for _ in range(4)
+        )),),
+    )
+    samples = [
+        SampleConfig(name, contaminated_by=by, contamination_fraction=frac)
+        for name, by, frac in (("a", 1, 0.2), ("b", 2, 0.2), ("c", 0, 0.2), ("d", 1, 0.15))
+    ]
+    grid = AFGrid.build(0.01, extra_points=[0.5])
+    return PosteriorEngine(
+        [absent_event(4), present], grid, samples, resolution=0.01,
+        n_artifact_combos=len(FULL_COMBOS_DEFAULT) - 1, device=device,
+    )
+
+
 def full_prior_table(scenario, engine):
     """The --full-prior joint prior of an SNV on chr1 on ``engine``'s
     per-sample active subgrids, as the call stage builds it, and the host
@@ -288,6 +314,73 @@ def k1_edge_rows(name, seed=0):
     if U > 1:
         nu[-1] = 0.0
     return tuple(np.ascontiguousarray(x, dtype=np.float32) for x in (a, r, m, psa, nu, kappa))
+
+
+# cases of the engine's grid contraction (see lse_contract_args)
+LSE_CONTRACT_CASES = ("unit", "map", "afd_swapped", "neg_inf", "no_class", "nb_gt_k",
+                      "large")
+# the tumor-normal call's classes: the tumor's (Gv 101; the absent branch
+# on the zero point, eight on the whole grid) and the normal's (Gv 15)
+_TUMOR_CLASSES = ([0] + [1] * 8, [[0]], None)
+_NORMAL_CLASSES = ([0, 0, 1, 2, 3, 0, 1, 2, 3], [list(range(10)), [10], [12], [14]], None)
+
+
+def lse_contract_args(name, device, L=None, seed=0):
+    """(F, S, class table) of one case of ``ops.lse_contract``, on ``device``:
+    F [L, B, Gv, Gu] ~ N(-20, 4) and S [L, B, NB, Gv] ~ N(-5, 2) float32, as
+    the engine passes them:
+
+    * ``unit``: the call's grid elimination, F [L, 8, 101, 15] and S
+      expanded over B from [L, 1, 9, 101], the tumor's classes (L 1024);
+    * ``map``: F [L, 1, 101, 15] a slice of a B = 8 slab, S [L, 1, 9, 101];
+    * ``afd_swapped``: F the swapped view of [L, 1, 101, 15], S [L, 1, 9,
+      15], the normal's classes (one of ten points, three of one);
+    * ``neg_inf``: F rows (l, b) and class columns all -inf, S rows all -inf
+      and a fifth of S -inf; a class with one grid point;
+    * ``no_class``: two branches in no class;
+    * ``nb_gt_k``: 21 branches in 3 classes, one of 13 branches (more than
+      a group) and masks with holes;
+    * ``large``: Gv = Gu = 1001, more than a block's shared memory."""
+    from .ops.lse_contract import class_table
+
+    rng = np.random.default_rng(seed)
+    B, Gv, Gu, classes = {
+        "unit": (8, 101, 15, _TUMOR_CLASSES), "map": (1, 101, 15, _TUMOR_CLASSES),
+        "afd_swapped": (1, 15, 101, _NORMAL_CLASSES),
+        "neg_inf": (3, 37, 20, ([0, 1, 1, 2, 0], [[0, 5, 6, 7], [3], None], None)),
+        "no_class": (2, 33, 9, ([0, -1, 1, 0, -1, 1], [[1, 2, 3], None], None)),
+        "nb_gt_k": (2, 40, 24, ([0] * 13 + [1] * 5 + [2] * 3, None, "holes")),
+        "large": (1, 1001, 1001, ([0, 1, 1, 0, 1], [list(range(100, 900)), None], None)),
+    }[name]
+    L = L or {"unit": 1024, "map": 1024, "afd_swapped": 1024, "large": 2}.get(name, 64)
+    cls, pts, holes = classes
+    NB, K = len(cls), max(cls) + 1
+    masks = np.ones((K, Gv), bool)
+    for k in range(K):
+        if holes:
+            masks[k] = rng.random(Gv) < 0.6
+        elif pts and k < len(pts) and pts[k] is not None:
+            masks[k] = False
+            masks[k, pts[k]] = True
+    f = rng.normal(-20.0, 4.0, (L, B, Gv, Gu))
+    s = rng.normal(-5.0, 2.0, (L, 1 if name == "unit" else B, NB, Gv))
+    if name == "neg_inf":
+        f[rng.random((L, B)) < 0.1] = -np.inf
+        f[:, :, :, 3][:, :, masks[0]] = -np.inf
+        s[rng.random(s.shape[:3]) < 0.1] = -np.inf
+        s[rng.random(s.shape) < 0.2] = -np.inf
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)
+
+    if name == "map":
+        F = t(np.concatenate([f, rng.normal(-20.0, 4.0, (L, 7, Gv, Gu))], axis=1))[:, :1]
+    elif name == "afd_swapped":
+        F = torch.swapaxes(t(np.swapaxes(f, -1, -2)), -1, -2)
+    else:
+        F = t(f)
+    S = t(s).expand(L, B, NB, Gv)
+    return F, S, class_table(np.array(cls), masks, device)
 
 
 def pairhmm_items(n=21, seed=3):

@@ -49,6 +49,7 @@ from .likelihood import (
     sample_loglik_grid,
 )
 from .ll_classes import ll_classes_folded
+from .lse_contract import class_table, lse_contract
 
 LN_32 = math.log(3.2)  # Kass-Raftery "positive" threshold
 PROB_05 = math.log(0.5)
@@ -575,15 +576,9 @@ class PosteriorEngine:
                  t(inv.astype(np.int64)))
             for si, (nu, kap, inv) in self.pair_class.items()
         }
-        self._support_t = []
-        for si in range(S):
-            cls, masks = self.support_classes[si]
-            per = []
-            for k in range(masks.shape[0]):
-                idx = np.nonzero(cls == k)[0]
-                if len(idx):
-                    per.append((t(idx.astype(np.int64)), t(masks[k])))
-            self._support_t.append(per)
+        self._support_t = [
+            class_table(cls, masks, dev) for cls, masks in self.support_classes
+        ]
         self._backbone_t = [
             t(self._afd_backbone(si).astype(np.int64)) for si in range(S)
         ]
@@ -634,27 +629,10 @@ class PosteriorEngine:
 
     # ------------------------------------------------------------------
     def _lse_contract(self, F, S, classes):
-        """logsumexp over v of F[l,b,v,u] + S[l,b,n,v] -> [l,b,n,u].
-
-        Shifted-exp einsum: shifts are taken per spectrum-support class of
-        the eliminated sample.  classes: [(branch index tensor, mask [Gv])]."""
-        L, B = F.shape[0], F.shape[1]
-        Gu = F.shape[3]
-        mS = torch.amax(S, dim=-1)  # [L,B,NB]
-        mS_s = torch.where(torch.isfinite(mS), mS, 0.0)
-        Q = torch.exp(S - mS_s[..., None])  # [L,B,NB,Gv]
-        out = torch.zeros((L, B, S.shape[2], Gu), dtype=F.dtype, device=F.device)
-        for idx, cmask in classes:
-            cm = cmask[None, None, :, None]
-            Fk = torch.where(cm, F, NEG_INF)
-            mF = torch.amax(Fk, dim=2)  # [L,B,Gu]
-            mF_s = torch.where(torch.isfinite(mF), mF, 0.0)
-            P = torch.where(cm, torch.exp(Fk - mF_s[:, :, None, :]), 0.0)
-            Qk = Q[:, :, idx, :]
-            R = torch.einsum("lbvu,lbnv->lbnu", P, Qk)
-            vals = torch.log(R) + mF_s[:, :, None, :] + mS_s[:, :, idx, None]
-            out[:, :, idx, :] = vals
-        return out
+        """logsumexp over v of F[l,b,v,u] + S[l,b,n,v] -> [l,b,n,u], with
+        shifts per spectrum-support class of the eliminated sample
+        (``ops/lse_contract.py``; classes: its ``ClassTable``)."""
+        return lse_contract(F, S, classes)
 
     def _component_cycle(self, comp):
         """Cycle nodes of a component in parent order, or []."""

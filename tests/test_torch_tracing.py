@@ -215,3 +215,67 @@ def test_span_and_profiler_range_share_a_clock(fresh_log):
     starts = {e.name(): e.start_ns() for e in prof.profiler.kineto_results.events()}
     offsets = [abs(rec[2] - starts[rec[0]]) for _, rec in fresh_log.records()]
     assert len(offsets) == 5 and min(offsets) < 200_000
+
+
+# tumor and relapse contaminated by one normal, events split by l2fc(relapse,
+# tumor): the star route of PosteriorEngine._lfc_group_term, at resolution 0.1
+LFC_SCENARIO = {
+    "samples": {
+        "normal": {"resolution": 0.1, "universe": "[0.0,0.5[ | 0.5 | 1.0"},
+        "tumor": {"resolution": 0.1, "universe": "[0.0,1.0]",
+                  "contamination": {"by": "normal", "fraction": 0.25}},
+        "relapse": {"resolution": 0.1, "universe": "[0.0,1.0]",
+                    "contamination": {"by": "normal", "fraction": 0.4}},
+    },
+    "events": {
+        "germline_het": "normal:0.5",
+        "stable": "normal:0.0 & tumor:]0.0,1.0] & relapse:]0.0,1.0] "
+                  "& l2fc(relapse, tumor) >= -1 & l2fc(relapse, tumor) <= 1",
+        "expanded": "normal:0.0 & tumor:]0.0,1.0] & relapse:]0.0,1.0] "
+                    "& l2fc(relapse, tumor) > 1",
+    },
+}
+LFC_COUNTERS = ("engine.lfc_steps", "engine.lfc_cells", "engine.lfc_bytes",
+                "engine.lfc_stream_ns")
+
+
+def _lfc_window(traced):
+    from varlociraptor_tpu_torch.bench_utils import engine_inputs, scenario_engine
+
+    _, engine = scenario_engine(LFC_SCENARIO, 0.1, device="cpu")
+    args = engine_inputs(engine, n_loci=8, depth=4, seed=1)
+    log = tracing.Log()
+    saved, tracing.LOG = tracing.LOG, log
+    try:
+        if traced:
+            with profile(activities=[ProfilerActivity.CPU]):
+                engine.run(*args)
+        else:
+            engine.run(*args)
+    finally:
+        tracing.LOG = saved
+    return engine, args, log
+
+
+def test_lfc_pass_records_its_span_and_counters():
+    engine, args, log = _lfc_window(traced=True)
+    records = [r for _, r in log.records()]
+    spans = [r for r in records if r[0] == "engine.lfc" and r[6] is None]
+    counters = {r[0]: r[6] for r in records if r[0] in LFC_COUNTERS}
+    assert len(spans) == 1 and set(counters) == set(LFC_COUNTERS)
+    tumor, relapse, normal = (engine.values_s[i].size for i in (1, 2, 0))
+    L, B = args[0].shape[0], args[2].shape[2]
+    branches = len(engine._lfc_t)  # the two l2fc events and their artifact twins
+    assert branches == 4 and not engine._lfc_marks
+    # one star integral a branch: every (tumor, relapse, normal) grid cell
+    assert counters["engine.lfc_cells"] == branches * L * B * tumor * relapse * normal
+    assert counters["engine.lfc_steps"] == branches * normal
+    # fa, fb, rp and the mask read once, the two [L, B] outputs written once
+    assert counters["engine.lfc_bytes"] == branches * 4 * (
+        L * B * normal * (tumor + relapse + 1) + tumor * relapse + 2 * L * B)
+    assert 0 < counters["engine.lfc_stream_ns"] <= spans[0][3] - spans[0][2]
+
+
+def test_lfc_pass_records_nothing_untraced():
+    engine, _, log = _lfc_window(traced=False)
+    assert log.issued == 0 and not engine._lfc_marks and engine.loop_steps > 0

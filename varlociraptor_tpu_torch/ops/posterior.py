@@ -31,6 +31,7 @@ arrays with the keys and dtypes of the reference's ``_unpack_host``.
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
@@ -155,6 +156,23 @@ def _lfc_components(lfc_list):
     return list(groups.values())
 
 
+def _stream_mark(dev):
+    """A point on ``dev``'s stream: a timed CUDA event recorded there, or
+    the host clock in ns where the device computes as the host calls it."""
+    if dev.type == "cuda":
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(dev))
+        return event
+    return time.perf_counter_ns()
+
+
+def _stream_ns(start, end):
+    """Nanoseconds between two completed :func:`_stream_mark` points."""
+    if isinstance(start, int):
+        return end - start
+    return round(start.elapsed_time(end) * 1e6)
+
+
 def _log_mask(m):
     """0 where a bool mask holds, -inf elsewhere (float32)."""
     return np.where(np.asarray(m), 0.0, -np.inf).astype(np.float32)
@@ -210,10 +228,12 @@ class _Pending:
     non-blocking copies, and the CUDA event recorded after those copies on
     the dispatching stream (None on the CPU).  Any thread may finish it."""
 
-    def __init__(self, host, event, L):
+    def __init__(self, host, event, L, lfc_marks):
         self.host = host
         self.event = event
         self.L = L
+        # traced: (start, end) stream marks of each l2fc pass of the run
+        self.lfc_marks = lfc_marks
 
 
 class PosteriorEngine:
@@ -541,6 +561,10 @@ class PosteriorEngine:
         # contamination cycles, --full-prior trio / generic), for the
         # launch accounting of chip_smoke.py
         self.loop_steps = 0
+        # the l2fc integrals' [cells, bytes] of the current pass, and the
+        # traced passes' stream marks not yet handed to a pending fetch
+        self._lfc_work = [0, 0]
+        self._lfc_marks = []
 
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
@@ -861,6 +885,12 @@ class PosteriorEngine:
                 factors.append((s, p, pair_logliks[s]))
         for a, b, lm in constraints:
             factors.append((a, b, lm[None, None]))
+        self._lfc_count(
+            L * B * joint_cells,
+            sum(L * B * d[s].shape[-1] for s in union)
+            + sum(f.numel() for _, _, f in factors),
+            L * B,
+        )
 
         z = torch.zeros((L, B), device=w_list[0].device)
         for s in union:
@@ -929,6 +959,13 @@ class PosteriorEngine:
             s: loglik[s] + w_list[s][:, bi][:, None, :]  # [L,B,Gs]
             for s in nodes
         }
+        L, B = d[root].shape[0], d[root].shape[1]
+        self._lfc_count(
+            sum(L * B * lm.numel() for _, _, lm in group),
+            sum(L * B * d[s].shape[-1] for s in nodes)
+            + sum(lm.numel() for _, _, lm in group),
+            L * B,
+        )
         z = None
         for s in nodes:
             zv = d[s][:, :, self.zero_s[s]]
@@ -949,7 +986,36 @@ class PosteriorEngine:
                     break
         return _lse(d[root], dim=-1), z
 
+    def _lfc_count(self, cells, inputs, outputs):
+        """Add one l2fc integral's work to the pass's count: its joint grid
+        cells, and the bytes of its float32 inputs read once (``inputs``
+        elements) and of its two [L,B] outputs written once (``outputs``
+        elements each)."""
+        self._lfc_work[0] += cells
+        self._lfc_work[1] += 4 * (inputs + 2 * outputs)
+
     def _lfc_terms(self, T, Z, U, Uzero, loglik, pair_logliks, w_list):
+        """:meth:`_lfc_branches` in the span ``engine.lfc``.  Traced, it
+        counts ``engine.lfc_steps`` (grid-axis loop steps),
+        ``engine.lfc_cells`` and ``engine.lfc_bytes`` (the integrals' joint
+        grid cells and bytes, :meth:`_lfc_count`), and marks the stream at
+        its start and end: the marks go with the run's pending fetch, whose
+        :meth:`fetch_run` counts the stream time between them as
+        ``engine.lfc_stream_ns``."""
+        with tracing.span("engine.lfc"):
+            traced = tracing.enabled()
+            if traced:
+                start, steps0 = _stream_mark(T.device), self.loop_steps
+            self._lfc_work = [0, 0]
+            T, Z = self._lfc_branches(T, Z, U, Uzero, loglik, pair_logliks, w_list)
+            if traced:
+                self._lfc_marks.append((start, _stream_mark(T.device)))
+                tracing.count("engine.lfc_steps", self.loop_steps - steps0)
+                tracing.count("engine.lfc_cells", self._lfc_work[0])
+                tracing.count("engine.lfc_bytes", self._lfc_work[1])
+        return T, Z
+
+    def _lfc_branches(self, T, Z, U, Uzero, loglik, pair_logliks, w_list):
         """Branches with l2fc constraints: re-contract the constrained
         samples jointly under their pairwise log masks.  T, Z [L,B,NB]
         (updated in place on the constrained branches)."""
@@ -1023,6 +1089,8 @@ class PosteriorEngine:
             da = loglik[a] + w_list[a][:, bi][:, None, :]  # [L,B,Ga]
             db = loglik[b] + w_list[b][:, bi][:, None, :]
             joint_ab = da[:, :, :, None] + db[:, :, None, :] + lm[None, None]
+            self._lfc_count(joint_ab.numel(), da.numel() + db.numel() + lm.numel(),
+                            da.shape[0] * da.shape[1])
             z00 = da[:, :, za] + db[:, :, zb] + lm[za, zb]
             return _lse(joint_ab, dim=(-2, -1)), z00
         # both contaminated by the same root parent (star component, e.g.
@@ -1045,14 +1113,18 @@ class PosteriorEngine:
         fa = pair_logliks[a] + w_list[a][:, bi][:, None, :, None]  # [L,B,Ga,Gp]
         fb = pair_logliks[b] + w_list[b][:, bi][:, None, :, None]
         rp = loglik[p] + w_list[p][:, bi][:, None, :]  # [L,B,Gp]
+        L, B = rp.shape[0], rp.shape[1]
+        cells = L * B * lm.numel() * rp.shape[-1]  # the (a, b, p) joint grid
+        inputs = fa.numel() + fb.numel() + rp.numel() + lm.numel()
         rp_zero = rp[..., zp]
         for c in comp_of_sample[a]:
             if c in (a, b, p):
                 continue
             fc = pair_logliks[c] + w_list[c][:, bi][:, None, :, None]
+            cells, inputs = cells + fc.numel(), inputs + fc.numel()
             rp = rp + _lse(fc, dim=-2)
             rp_zero = rp_zero + fc[..., self.zero_s[c], zp]
-        L, B = rp.shape[0], rp.shape[1]
+        self._lfc_count(cells, inputs, L * B)
         total = torch.full((L, B), NEG_INF, device=rp.device)
         for g in range(rp.shape[-1]):
             self.loop_steps += 1
@@ -1542,9 +1614,11 @@ class PosteriorEngine:
         }
 
     def _start_fetch(self, dev_out, L):
-        """Queue the device->host copies; returns a :class:`_Pending`."""
+        """Queue the device->host copies; returns a :class:`_Pending`, which
+        takes the l2fc stream marks of the run."""
+        marks, self._lfc_marks = self._lfc_marks, []
         if self.device.type != "cuda":
-            return _Pending(dev_out, None, L)
+            return _Pending(dev_out, None, L, marks)
         stream = torch.cuda.current_stream(self.device)
         host = {}
         for k, v in dev_out.items():
@@ -1553,12 +1627,14 @@ class PosteriorEngine:
             host[k] = h
         event = torch.cuda.Event()
         event.record(stream)
-        return _Pending(host, event, L)
+        return _Pending(host, event, L, marks)
 
     def fetch_run(self, pending):
         """Wait for a pending result and unpack it into the host dict."""
         if pending.event is not None:
             pending.event.synchronize()
+        for start, end in pending.lfc_marks:
+            tracing.count("engine.lfc_stream_ns", _stream_ns(start, end))
         h = {k: v.numpy() for k, v in pending.host.items()}
         host = {
             "posteriors": h["posteriors"],

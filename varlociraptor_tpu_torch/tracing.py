@@ -1,9 +1,10 @@
 """Spans and counters at the call path's layer boundaries, recorded while a
 torch profiler runs (``span``, ``traced``, ``count``; ``summary`` reads them).
 
-Tracing is on exactly while ``torch.autograd.profiler._is_profiler_enabled``
-is set, as torch does for every profiler, a device-only one included; off,
-``span`` returns the shared no-op ``OFF`` and ``count`` returns.  On, each
+Tracing is on (``enabled``) exactly while
+``torch.autograd.profiler._is_profiler_enabled`` is set, as torch does for
+every profiler, a device-only one included; off, ``span`` returns the shared
+no-op ``OFF`` and ``count`` returns.  On, each
 record is ``(name, thread, start_ns, end_ns, parent, window, n)`` in ``LOG``:
 ``parent`` is the log index of the enclosing span on the thread (-1: none);
 ``window`` is the call window's id, given or the enclosing span's (-1: none);
@@ -88,9 +89,14 @@ class _Span:
                               self.parent, self.window, None))
 
 
+def enabled():
+    """Whether tracing is on: a torch profiler runs."""
+    return getattr(_profiler, "_is_profiler_enabled", False)
+
+
 def span(name, window=None):
     """A context that records ``name`` from entry to exit while tracing is on."""
-    if not getattr(_profiler, "_is_profiler_enabled", False):
+    if not enabled():
         return OFF
     return _Span(name, window)
 
@@ -109,7 +115,7 @@ def traced(name):
 
 def count(name, n, window=None):
     """Record the counter ``name`` += ``n`` while tracing is on."""
-    if not getattr(_profiler, "_is_profiler_enabled", False):
+    if not enabled():
         return
     _, (parent, outer) = _top()
     t = time.time_ns()

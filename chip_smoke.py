@@ -49,6 +49,18 @@ and in every Python process it starts through
                        alike, LC_TOL); the call's shapes and the large grid
                        timed with CUDA events beside their bound, and a
                        window's four summed.
+  (a'''') lfc_star_vs_plain
+                       the engine's star l2fc integral (csrc/lfc_star.cu)
+                       against its plain version on the card, on every case
+                       of ``bench_utils.lfc_star_args``: the relapse_l2fc
+                       cell's branch [1024, 8, 101, 101, 11], phase (f2)'s
+                       101-point normal, a 1001 x 1001 mask, Ga != Gb, a
+                       one-point parent grid, a fully masked branch, -inf
+                       rows, and pairs whose peak the mask cuts (-inf
+                       alike, within LFC_TOL_REL x |x| or LFC_TOL_ABS); the
+                       cell's and (f2)'s shapes timed with CUDA events
+                       beside ``portbench/lib/roofline_lfc.lfc_roofline``'s
+                       bound (the exponentials) and the plain version.
   (b) engine           the tumor-normal engine (resolution 0.01) on 32768
                        synthetic loci at depth 64, every output copied to the
                        host; K1 must launch twice per call and the contraction
@@ -261,6 +273,15 @@ LC_REPLACES = "varlociraptor_tpu/ops/posterior.py:645"
 # x max(1, |x|): f32 exps and logs, the sum over v in another order than the
 # einsum's; -inf must fall in the same places
 LC_TOL = 2e-5
+LFS_SOURCE = "varlociraptor_tpu_torch/csrc/lfc_star.cu"
+LFS_REPLACES = "varlociraptor_tpu/ops/posterior.py:1228"
+# the star l2fc integral against its plain version: the larger of the two
+# (f32 ex2.approx, the sum over (g, ga, gb) in another order than the
+# loop's), -inf in the same places, never NaN
+LFC_TOL_REL = 2e-6
+LFC_TOL_ABS = 1e-4
+# phase (a'''')'s timed cases: the relapse_l2fc cell's branch and (f2)'s
+LFS_TIMED = ("cell", "f2")
 # phase (a''')'s timed cases: the call's three kinds of contraction (a
 # window makes one "unit", two "map" and one "afd_swapped") and a grid larger
 # than a block's shared memory
@@ -538,6 +559,58 @@ def phase_contraction_vs_plain(timer=cuda_ms):
     return {"phase": "contraction_vs_plain", "tol_rel": LC_TOL, "cases": list(cases.values()),
             "window": {**window, "launches": sum(LC_WINDOW.values())},
             "max_abs_err": max(c["max_abs_err"] for c in cases.values())}, cases["unit"]
+
+
+def phase_lfc_star_vs_plain(timer=cuda_ms):
+    """(a''''): the engine's star l2fc integral (csrc/lfc_star.cu) against
+    its plain version on the card, on every case of
+    ``bench_utils.lfc_star_args``: -inf in the same places, never NaN, the
+    rest within LFC_TOL_REL x |x| or LFC_TOL_ABS, whichever is larger; the
+    LFS_TIMED cases timed with CUDA events (the card held ahead of the host)
+    beside their bound."""
+    import numpy as np
+
+    from portbench.lib.roofline_lfc import lfc_roofline
+    from varlociraptor_tpu_torch.bench_utils import LFC_STAR_CASES, lfc_star_args
+    from varlociraptor_tpu_torch.ops import lfc_star as ls
+
+    cases = []
+    for name in LFC_STAR_CASES:
+        args = lfc_star_args(name, "cuda", seed=5)
+        pa, _, pb, _, lm, rp = args
+        n0 = ls.lfc_star.launches
+        g = ls.lfc_star(*args).cpu().numpy()
+        if ls.lfc_star.launches != n0 + 1:
+            raise PhaseError(f"lfc_star {name}: the kernel did not launch once")
+        r = ls.lfc_star_reference(*args).cpu().numpy()
+        fin = np.isfinite(r)
+        if np.isnan(g).any() or not (np.array_equal(np.isfinite(g), fin)
+                                     and np.array_equal(g[~fin], r[~fin])):
+            raise PhaseError(f"lfc_star {name}: -inf or NaN differs from the plain version")
+        err = np.abs(g[fin] - r[fin])
+        lim = np.maximum(LFC_TOL_REL * np.abs(r[fin]), LFC_TOL_ABS)
+        worst = float(np.max(err / lim)) if fin.any() else 0.0
+        if not worst <= 1.0:
+            raise PhaseError(f"lfc_star {name}: {worst} x the tolerance")
+        case = {"case": name, "shape": [*pa.shape[:3], pb.shape[2], rp.shape[2]],
+                "not_finite": int((~fin).sum()),
+                "max_abs_err": float(err.max()) if fin.any() else 0.0,
+                "max_err_over_tol": worst}
+        if name in LFS_TIMED:
+            L, B, Gp = rp.shape
+            case["ms"] = timer(lambda: ls.lfc_star(*args), 20, ahead=True)
+            case["plain_ms"] = timer(lambda: ls.lfc_star_reference(*args), 2)
+            # the engine's _lfc_count of the branch: the joint grid's cells,
+            # the inputs read once and the two [L, B] outputs written once
+            cells = L * B * lm.numel() * Gp
+            bound = lfc_roofline(
+                cells, 4 * (pa.numel() + pb.numel() + rp.numel() + lm.numel() + 2 * L * B))
+            case.update(cells=cells, bound_ms=bound["bound_s"] * 1e3, bound_by=bound["bound_by"],
+                        roofline_share=bound["bound_s"] * 1e3 / case["ms"])
+        cases.append(case)
+    timed = {c["case"]: c for c in cases if "ms" in c}
+    return {"phase": "lfc_star_vs_plain", "tol_rel": LFC_TOL_REL, "tol_abs": LFC_TOL_ABS,
+            "cases": cases, "max_abs_err": max(c["max_abs_err"] for c in cases)}, timed["cell"]
 
 
 def phase_engine(engine, L=32768, n_plain=1024):
@@ -1272,6 +1345,7 @@ def mode_run(name, engine, n_loci, table):
 
     from varlociraptor_tpu_torch.bench_utils import engine_inputs
     from varlociraptor_tpu_torch.compare import compare_outputs
+    from varlociraptor_tpu_torch.ops import lfc_star as ls
     from varlociraptor_tpu_torch.ops import ll_classes as k1
     from varlociraptor_tpu_torch.ops import lse_contract as lc
 
@@ -1284,6 +1358,7 @@ def mode_run(name, engine, n_loci, table):
     torch.cuda.reset_peak_memory_stats()
     k1.ll_classes.launches = 0  # main path starts here
     lc.lse_contract.launches = 0
+    ls.lfc_star.launches = 0
     engine.loop_steps = 0
     ms, wall, runs = [], [], 3
     with k1_shapes() as shapes:
@@ -1298,13 +1373,18 @@ def mode_run(name, engine, n_loci, table):
             wall.append(time.perf_counter() - t0)
             ms.append(start.elapsed_time(end))
     launches, contractions = k1.ll_classes.launches, lc.lse_contract.launches
-    steps = engine.loop_steps
+    steps, star = engine.loop_steps, ls.lfc_star.launches
     peak = torch.cuda.max_memory_allocated()
     if launches == 0 or launches != sum(shapes.values()) or launches % runs:
         raise PhaseError(f"engine_modes {name}: K1 launched {launches} times in {runs} calls")
     if contractions % runs:
         raise PhaseError(f"engine_modes {name}: the contraction launched {contractions} "
                          f"times in {runs} calls")
+    # the star l2fc integral: one launch a star branch, no plain loop step
+    if star != runs * len(engine.branch_lfc_masks) * (name == "l2fc") or (
+            name == "l2fc" and steps):
+        raise PhaseError(f"engine_modes {name}: the star l2fc kernel launched {star} times "
+                         f"and the loop took {steps} steps in {runs} calls")
     if out["posteriors"].shape != (n_loci, engine.n_events) or out["af"].shape != (
             n_loci, engine.n_samples):
         raise PhaseError(f"engine_modes {name}: output shapes")
@@ -1333,6 +1413,7 @@ def mode_run(name, engine, n_loci, table):
                       for (N, U, D), c in sorted(shapes.items())],
         "loop_steps_per_call": steps // runs,
         "contractions_per_call": contractions // runs,
+        "lfc_star_launches_per_call": star // runs,
         "vs_plain_head": {"n_loci": min(MODES_PLAIN, n_loci), "seconds": plain_s,
                           "max_rel": info["max_rel"], "af_max": info["af_max"],
                           "af_flat": len(info["af_flat"]),
@@ -2860,6 +2941,8 @@ def main():
     emit(a3)
     a4, lc_bench = phase_contraction_vs_plain()
     emit(a4)
+    a5, lfs_bench = phase_lfc_star_vs_plain()
+    emit(a5)
     emit(phase_engine(engine))
     c, launches = phase_cli(work)
     emit(c)
@@ -2949,6 +3032,15 @@ def main():
         "launches_by_phase": lc_by_phase, "max_abs_err": a4["max_abs_err"],
         **timing(lc_bench), "library_ms": None, "shape": lc_bench["F"],
         "window": a4["window"],
+    }] + [{
+        "name": "lfc_star", "route": "cuda", "source": LFS_SOURCE, "replaces": LFS_REPLACES,
+        "launches": len(a5["cases"]) + sum(m["lfc_star_launches_per_call"] * 3
+                                           for m in f["modes"]),
+        "launches_by_phase": {"lfc_star_vs_plain": len(a5["cases"]),
+                              "engine_modes": {m["mode"]: m["lfc_star_launches_per_call"] * 3
+                                               for m in f["modes"]}},
+        "max_abs_err": a5["max_abs_err"], **timing(lfs_bench), "library_ms": None,
+        "shape": lfs_bench["shape"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

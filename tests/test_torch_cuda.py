@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels on the card: K1 (csrc/ll_classes.cu),
-K2, K3 and K4 (csrc/pairhmm_column.cu), each of K2-K4 at every tile, and the
-engine's grid contraction (csrc/lse_contract.cu).
+K2, K3 and K4 (csrc/pairhmm_column.cu), each of K2-K4 at every tile, the
+engine's grid contraction (csrc/lse_contract.cu) and its star l2fc integral
+(csrc/lfc_star.cu).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false.  On a machine with an NVIDIA card and nvcc:
@@ -13,7 +14,10 @@ against theirs 1e-4 * max(1, |x|) (float32 column sums in another order, the
 D scan in another association), the same finiteness and -1e30 exactly where
 the plain version gives it; the grid contraction against its plain version
 2e-5 * max(1, |x|) with -inf in the same places (float32 exps and logs, the
-sum over v in another order than the einsum's); the engine on the card against the engine on
+sum over v in another order than the einsum's); the star l2fc integral
+against its plain version within 2e-6 * |x| or 1e-4, whichever is larger,
+with -inf in the same places and no NaN (float32 ex2.approx, the sum over
+(g, ga, gb) in another order than the loop's); the engine on the card against the engine on
 the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py, in
 tumor-normal and in chip_smoke.py phase (f)'s modes (--full-prior, l2fc,
 cyclic contamination); the legacy per-WorkItem caller's VCF on the card
@@ -36,6 +40,7 @@ import torch
 
 from varlociraptor_tpu_torch.bench_utils import (
     K1_EDGE_CASES,
+    LFC_STAR_CASES,
     LSE_CONTRACT_CASES,
     PAIRHMM_TILE_WIDTHS,
     cyclic_engine,
@@ -47,12 +52,14 @@ from varlociraptor_tpu_torch.bench_utils import (
     pairhmm_shape_items,
     pairhmm_tile_items,
     l2fc_engine,
+    lfc_star_args,
     lse_contract_args,
     rho_engine,
     tumor_normal_engine,
 )
 from varlociraptor_tpu_torch.compare import compare_outputs
 from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams
+from varlociraptor_tpu_torch.ops import lfc_star as ls
 from varlociraptor_tpu_torch.ops import ll_classes as k1
 from varlociraptor_tpu_torch.ops import lse_contract as lc
 from varlociraptor_tpu_torch.ops import pairhmm_column as phc
@@ -63,6 +70,8 @@ TOL = 5e-5
 # the grid contraction against its plain version: float32 exps and logs,
 # the sum over v in another order than the einsum's
 LSE_TOL = 2e-5
+# the star l2fc integral against its plain version: the larger of the two
+LFC_TOL_REL, LFC_TOL_ABS = 2e-6, 1e-4
 PAIRHMM_TOL = 1e-4
 # log gap params (t_mi, t_md, t_ii, t_dd): the default zero-extension model,
 # and ONT-like finite extensions (tests/test_pallas_pairhmm.py)
@@ -191,6 +200,77 @@ def test_lse_contract_wrapper_checks_its_inputs(card):
     assert lc.lse_contract.launches == n0
 
 
+@pytest.mark.parametrize("name", LFC_STAR_CASES)
+def test_lfc_star_kernel_matches_plain(card, name):
+    """The star l2fc integral against its plain version on the card
+    (bench_utils.lfc_star_args): the relapse_l2fc cell's branch [1024, 8,
+    101, 101, 11], phase (f2)'s 101-point normal, a 1001 x 1001 mask at two
+    loci, Ga != Gb, a one-point parent grid, a fully masked branch, -inf
+    rows, and pairs whose peak the mask cuts (the kernel's exact redo)."""
+    args = lfc_star_args(name, card)
+    n0 = ls.lfc_star.launches
+    got = ls.lfc_star(*args)
+    assert ls.lfc_star.launches == n0 + 1
+    ref = ls.lfc_star_reference(*args)
+    torch.cuda.synchronize()
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    assert g.shape == r.shape and got.dtype == torch.float32
+    fin = np.isfinite(r)
+    assert not np.isnan(g).any()
+    assert np.array_equal(np.isfinite(g), fin)
+    assert np.array_equal(g[~fin], r[~fin])
+    if name in ("masked", "neg_inf"):
+        assert not fin.all()
+    lim = np.maximum(LFC_TOL_REL * np.abs(r[fin]), LFC_TOL_ABS)
+    err = np.abs(g[fin] - r[fin])
+    assert (err <= lim).all(), (err / lim).max()
+
+
+def test_lfc_star_wrapper_checks_its_inputs(card):
+    pa, wa, pb, wb, lm, rp = lfc_star_args("ragged", card, L=4)
+    n0 = ls.lfc_star.launches
+    with pytest.raises(TypeError, match="float32"):
+        ls.lfc_star(pa.double(), wa, pb, wb, lm, rp)
+    with pytest.raises(ValueError, match="rank"):
+        ls.lfc_star(pa[0], wa, pb, wb, lm, rp)
+    with pytest.raises(ValueError, match="do not agree"):
+        ls.lfc_star(pa, wa, pb, wb, lm.T, rp)
+    with pytest.raises(ValueError, match="on cpu"):
+        ls.lfc_star(pa, wa, pb, wb, lm.cpu(), rp)
+    assert ls.lfc_star.launches == n0
+
+
+def test_l2fc_window_on_the_card_runs_the_star_kernel(card):
+    """One traced window of phase (f2)'s l2fc engine: one kernel launch a
+    star branch, counted in ``lfc_star.launches`` and in the trace counter
+    ``engine.lfc_star_launches``, and no plain loop step
+    (``engine.lfc_steps`` 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from varlociraptor_tpu_torch import tracing
+
+    engine = l2fc_engine(device=card)
+    inputs = engine_inputs(engine, n_loci=24, depth=32, seed=6)
+    engine.run(*inputs)  # warm-up, untraced
+    log = tracing.Log()
+    saved, tracing.LOG = tracing.LOG, log
+    n0, engine.loop_steps = ls.lfc_star.launches, 0
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            engine.run(*inputs)
+    finally:
+        tracing.LOG = saved
+    counts = {}
+    for _, rec in log.records():
+        if rec[6] is not None:
+            counts[rec[0]] = counts.get(rec[0], 0) + rec[6]
+    branches = len(engine._lfc_t)
+    assert branches == 6
+    assert ls.lfc_star.launches == n0 + branches
+    assert counts["engine.lfc_star_launches"] == branches
+    assert counts["engine.lfc_steps"] == 0 and engine.loop_steps == 0
+
+
 def test_engine_on_the_card_matches_the_cpu(card):
     _, gpu = tumor_normal_engine(resolution=0.01, device=card)
     _, cpu = tumor_normal_engine(resolution=0.01, device="cpu")
@@ -275,10 +355,12 @@ def test_engine_modes_on_the_card_match_the_cpu(card, name, k1_per_call,
     inputs = engine_inputs(cpu, n_loci=L, depth=32, seed=6)
     pj = None if table is None else np.ascontiguousarray(
         np.broadcast_to(table, (L,) + table.shape))
-    n0, c0 = k1.ll_classes.launches, lc.lse_contract.launches
+    n0, c0, s0 = k1.ll_classes.launches, lc.lse_contract.launches, ls.lfc_star.launches
     got = gpu.run(*inputs, ln_prior_joint=pj)
     assert k1.ll_classes.launches == n0 + k1_per_call
     assert lc.lse_contract.launches == c0 + contractions_per_call
+    # the star l2fc integral: one launch a branch of the l2fc scenario
+    assert ls.lfc_star.launches == s0 + (len(gpu._lfc_t) if name == "l2fc" else 0)
     ref = cpu.run(*inputs, ln_prior_joint=pj)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
     assert not problems, problems[:5]

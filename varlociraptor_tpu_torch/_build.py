@@ -130,5 +130,9 @@ def load():
             # NB, K, G, the group width; F's and S's strides
             lib.vlt_lse_contract.argtypes = [p] * 5 + [i] * 8 + [ctypes.c_longlong] * 8 + [p]
             lib.vlt_lse_contract.restype = i
+            # the star l2fc integral: pa, wa, pb, wb, lm, rp, out; L, B, Ga,
+            # Gb, Gp; the strides of pa, wa, pb, wb, lm and rp
+            lib.vlt_lfc_star.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_longlong] * 17 + [p]
+            lib.vlt_lfc_star.restype = i
             _lib = lib
         return _lib

@@ -383,6 +383,67 @@ def lse_contract_args(name, device, L=None, seed=0):
     return F, S, class_table(np.array(cls), masks, device)
 
 
+# cases of the engine's star l2fc integral (see lfc_star_args)
+LFC_STAR_CASES = ("cell", "f2", "large", "ragged", "gp1", "masked", "neg_inf", "redo")
+
+
+def lfc_star_args(name, device, L=None, seed=0):
+    """(pa, wa, pb, wb, lm, rp) of one case of ``ops.lfc_star``, on
+    ``device``: pa [L, B, Ga, Gp] and pb ~ N(-40, 15), the branch weights
+    wa [L, Ga] and wb [L, Gb] ~ N(-4, 1) as columns of an [L, 3, G] table,
+    rp [L, B, Gp] ~ N(-10, 3), float32, and the log mask lm [Ga, Gb] of
+    the l2fc predicate |log2(b / a)| <= 1 on two grids over [0, 1] (both at
+    0 included):
+
+    * ``cell``: the ``relapse_l2fc.call3`` cell's branch, [1024, 8, 101,
+      101, 11] (L, B, Ga, Gb, Gp);
+    * ``f2``: ``chip_smoke.py`` phase (f2)'s, a 101-point normal, [1024, 2,
+      101, 101, 101];
+    * ``large``: a 1001 x 1001 mask (resolution 0.001), [2, 2, 1001, 1001, 11];
+    * ``ragged``: Ga != Gb, neither a multiple of 4, [16, 3, 13, 7, 5];
+    * ``gp1``: a one-point parent grid, [16, 3, 10, 11, 1];
+    * ``masked``: a fully masked branch (lm all -inf), [8, 2, 10, 11, 4];
+    * ``neg_inf``: -inf rows in pa, pb, wa and rp, [16, 3, 17, 17, 5];
+    * ``redo``: every pair's peak outside the mask, so that the cheap shift
+      of the kernel leaves the sum far below 2^-60, [8, 2, 21, 21, 3]."""
+    L0, B, Ga, Gb, Gp = {
+        "cell": (1024, 8, 101, 101, 11), "f2": (1024, 2, 101, 101, 101),
+        "large": (2, 2, 1001, 1001, 11), "ragged": (16, 3, 13, 7, 5),
+        "gp1": (16, 3, 10, 11, 1), "masked": (8, 2, 10, 11, 4),
+        "neg_inf": (16, 3, 17, 17, 5), "redo": (8, 2, 21, 21, 3),
+    }[name]
+    L = L or L0
+    rng = np.random.default_rng(seed)
+    pa = rng.normal(-40.0, 15.0, (L, B, Ga, Gp))
+    pb = rng.normal(-40.0, 15.0, (L, B, Gb, Gp))
+    wa = rng.normal(-4.0, 1.0, (L, 3, Ga))
+    wb = rng.normal(-4.0, 1.0, (L, 3, Gb))
+    rp = rng.normal(-10.0, 3.0, (L, B, Gp))
+    va, vb = np.linspace(0.0, 1.0, Ga)[:, None], np.linspace(0.0, 1.0, Gb)[None, :]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        keep = np.abs(np.log2(vb / va)) <= 1.0
+    keep[0, 0] = True
+    if name == "masked":
+        keep[:] = False
+    elif name == "neg_inf":
+        pa[rng.random((L, B)) < 0.2] = -np.inf
+        pb[:, :, 3][rng.random((L, B)) < 0.2] = -np.inf
+        wa[:, 1][rng.random(L) < 0.2] = -np.inf
+        rp[rng.random((L, B, Gp)) < 0.3] = -np.inf
+        rp[rng.random((L, B)) < 0.1] = -np.inf
+    elif name == "redo":
+        keep = np.zeros((Ga, Gb), bool)
+        keep[5:, 5:] = True
+        pa[:, :, :5], pa[:, :, 5:] = 0.0, -100.0
+        pb[:, :, :5], pb[:, :, 5:] = 0.0, -100.0
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)
+
+    lm = np.where(keep, 0.0, -np.inf)
+    return t(pa), t(wa)[:, 1], t(pb), t(wb)[:, 1], t(lm), t(rp)
+
+
 def pairhmm_items(n=21, seed=3):
     """Ragged pair-HMM work items (alleles of 40-300 bases, reads of 1-100
     bases cut from them with up to 3 edits, flat qualities 20/30/40): the

@@ -36,6 +36,15 @@ def _ln1mexp(x):
     return torch.where(x >= 0.0, NEG_INF, out)
 
 
+def _lse(x, dim):
+    m = torch.amax(x, dim=dim, keepdim=True)
+    fin = torch.isfinite(m)
+    m_safe = torch.where(fin, m, 0.0)
+    s = torch.log(torch.exp(x - m_safe).sum(dim=dim, keepdim=True)) + m_safe
+    s = torch.where(fin, s, m)
+    return s.squeeze(dim)
+
+
 def _ln_add_exp(a, b):
     m = torch.maximum(a, b)
     fin = torch.isfinite(m)

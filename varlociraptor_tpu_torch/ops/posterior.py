@@ -42,10 +42,12 @@ from ..ops.grid import AFGrid
 from .. import tracing
 from ..device import resolve_device
 from ..evidence.observation import F
+from .lfc_star import lfc_star
 from .likelihood import (
     NEG_INF,
     _ln1mexp,
     _ln_add_exp,
+    _lse,
     _read_terms,
     sample_loglik_grid,
 )
@@ -73,15 +75,6 @@ def _ln_sub_exp(a, b):
     """log(exp(a) - exp(b)) for a >= b (clamped at -inf)."""
     out = a + _ln1mexp(torch.clamp(b - a, max=0.0))
     return torch.where(b >= a, NEG_INF, out)
-
-
-def _lse(x, dim):
-    m = torch.amax(x, dim=dim, keepdim=True)
-    fin = torch.isfinite(m)
-    m_safe = torch.where(fin, m, 0.0)
-    s = torch.log(torch.exp(x - m_safe).sum(dim=dim, keepdim=True)) + m_safe
-    s = torch.where(fin, s, m)
-    return s.squeeze(dim)
 
 
 def observable_bounds(start, end, left_excl, right_excl, n_obs):
@@ -996,7 +989,9 @@ class PosteriorEngine:
 
     def _lfc_terms(self, T, Z, U, Uzero, loglik, pair_logliks, w_list):
         """:meth:`_lfc_branches` in the span ``engine.lfc``.  Traced, it
-        counts ``engine.lfc_steps`` (grid-axis loop steps),
+        counts ``engine.lfc_steps`` (the plain grid-axis loops' steps: none
+        where the star route's kernel runs, which counts its launches in
+        ``engine.lfc_star_launches``),
         ``engine.lfc_cells`` and ``engine.lfc_bytes`` (the integrals' joint
         grid cells and bytes, :meth:`_lfc_count`), and marks the stream at
         its start and end: the marks go with the run's pending fetch, whose
@@ -1095,8 +1090,8 @@ class PosteriorEngine:
             return _lse(joint_ab, dim=(-2, -1)), z00
         # both contaminated by the same root parent (star component, e.g.
         # tumor and relapse both contaminated by normal): lse over
-        # (ga, gb, gp) by a loop over the parent grid, one [L,B,Ga,Gb] slab
-        # per step
+        # (ga, gb, gp), ops/lfc_star.py (on the card one kernel launch; on
+        # the CPU a loop over the parent grid, one [L,B,Ga,Gb] slab a step)
         p = self.parent[a]
         if (
             p is None
@@ -1110,12 +1105,12 @@ class PosteriorEngine:
                 group, nodes, loglik, pair_logliks, w_list, bi, comp_of_sample
             )
         zp = self.zero_s[p]
-        fa = pair_logliks[a] + w_list[a][:, bi][:, None, :, None]  # [L,B,Ga,Gp]
-        fb = pair_logliks[b] + w_list[b][:, bi][:, None, :, None]
+        pa, pb = pair_logliks[a], pair_logliks[b]  # [L,B,Ga,Gp], [L,B,Gb,Gp]
+        wa, wb = w_list[a][:, bi], w_list[b][:, bi]  # [L,Ga], [L,Gb]
         rp = loglik[p] + w_list[p][:, bi][:, None, :]  # [L,B,Gp]
         L, B = rp.shape[0], rp.shape[1]
         cells = L * B * lm.numel() * rp.shape[-1]  # the (a, b, p) joint grid
-        inputs = fa.numel() + fb.numel() + rp.numel() + lm.numel()
+        inputs = pa.numel() + pb.numel() + rp.numel() + lm.numel()
         rp_zero = rp[..., zp]
         for c in comp_of_sample[a]:
             if c in (a, b, p):
@@ -1125,15 +1120,12 @@ class PosteriorEngine:
             rp = rp + _lse(fc, dim=-2)
             rp_zero = rp_zero + fc[..., self.zero_s[c], zp]
         self._lfc_count(cells, inputs, L * B)
-        total = torch.full((L, B), NEG_INF, device=rp.device)
-        for g in range(rp.shape[-1]):
-            self.loop_steps += 1
-            slab = (
-                fa[..., g][:, :, :, None] + fb[..., g][:, :, None, :]
-                + lm[None, None]
-            )
-            total = torch.logaddexp(total, _lse(slab, dim=(-2, -1)) + rp[..., g])
-        z00 = fa[..., za, zp] + fb[..., zb, zp] + lm[za, zb] + rp_zero
+        total = lfc_star(pa, wa, pb, wb, lm, rp)
+        if rp.device.type == "cpu":  # the plain version's loop steps
+            self.loop_steps += rp.shape[-1]
+        fa_z = pa[..., za, zp] + wa[:, None, za]  # fa[..., za, zp]
+        fb_z = pb[..., zb, zp] + wb[:, None, zb]
+        z00 = fa_z + fb_z + lm[za, zb] + rp_zero
         return total, z00
 
     def _full_prior_T(self, P, loglik, pair_logliks, w_list, B):

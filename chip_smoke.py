@@ -61,10 +61,24 @@ and in every Python process it starts through
                        cell's and (f2)'s shapes timed with CUDA events
                        beside ``portbench/lib/roofline_lfc.lfc_roofline``'s
                        bound (the exponentials) and the plain version.
+  (a''''') assemble_vs_plain
+                       the engine's event and MAP / AFD pass, its head and
+                       tail kernels (csrc/assemble.cu), against their plain
+                       versions on the card, on every case of
+                       ``bench_utils.assemble_args`` (the two cells' engines
+                       at 1024 loci, three components, a 1001-point grid, a
+                       two-point grid, one combination slot, exact ties,
+                       -inf rows, events compiled to False;
+                       ``bench_utils.assemble_mismatches`` at LC_TOL); the
+                       two cells' shapes and the 1001-point grid timed with
+                       CUDA events beside their bytes bound (inputs read
+                       once, outputs written once, at 3.35 TB/s) and the
+                       plain versions.
   (b) engine           the tumor-normal engine (resolution 0.01) on 32768
                        synthetic loci at depth 64, every output copied to the
-                       host; K1 must launch twice per call and the contraction
-                       four times; the first 1024 loci
+                       host; K1 must launch twice per call, the contraction
+                       four times and the assemble head and tail once each;
+                       the first 1024 loci
                        are re-run with the plain version on the card and every
                        output compared.
   (c) cli              100,000 synthetic tumor/normal loci through
@@ -221,6 +235,13 @@ The contraction's launches are counted in phases (c), (f) (by mode and in
 its CLI run) and (j) (the ranks' own counts included); each of them but
 (f)'s contamination cycle, which has no tree node, must launch it.
 
+The engine's event and MAP / AFD passes (``PosteriorEngine._assemble``
+calls) are counted in phases (b), (c), (f) and (j) (the ranks' own counts
+included), the assemble head and tail kernels' counters zeroed where each
+of these blocks starts; each pass must launch the head and the tail once.
+The kernels line gives the two kernels those counts and (a''''')'s checked
+cases (not its timing loops), by phase.
+
 The line before the last lists the kernels ({"kernels": [...]}): K1 with the
 launches counted in phases (c), (f), (h), (i) and (j) (the ranks' own counts
 included), the contraction with those of its phases and its time,
@@ -278,6 +299,10 @@ LFC_TOL_REL = 2e-6
 LFC_TOL_ABS = 1e-4
 # phase (a'''')'s timed cases: the relapse_l2fc cell's branch and (f2)'s
 LFS_TIMED = ("cell", "f2")
+AS_SOURCE = "varlociraptor_tpu_torch/csrc/assemble.cu"
+AS_REPLACES = "varlociraptor_tpu/ops/posterior.py:1531-1705 (XLA; no Pallas kernel)"
+# phase (a''''')'s timed cases: the two cells' windows and a 1001-point grid
+AS_TIMED = ("tumor_normal", "relapse_l2fc", "g1001")
 # phase (a''')'s timed cases: the call's three kinds of contraction (a
 # window makes one "unit", two "map" and one "afd_swapped") and a grid larger
 # than a block's shared memory
@@ -411,6 +436,37 @@ def plain_k1():
         yield
     finally:
         k1.ll_classes = kernel
+
+
+@contextlib.contextmanager
+def assemble_passes(what, card=True):
+    """The engine's event and MAP / AFD passes of a main-path block: yields
+    a dict whose ``passes`` (calls of ``PosteriorEngine._assemble``) is
+    filled on exit.  The head and tail kernels' counters start at 0 here,
+    as the main path's K1 and contraction counters do; PhaseError unless
+    the block made a pass and each pass launched the head and the tail
+    once (none with ``card`` False: a rehearsal on the CPU)."""
+    from varlociraptor_tpu_torch.ops import assemble as asm
+    from varlociraptor_tpu_torch.ops.posterior import PosteriorEngine
+
+    res = {"passes": 0}
+    inner = PosteriorEngine._assemble
+
+    def counted(self, *args, **kw):
+        res["passes"] += 1
+        return inner(self, *args, **kw)
+
+    asm.assemble_head.launches = asm.assemble_tail.launches = 0  # main path
+    PosteriorEngine._assemble = counted
+    try:
+        yield res
+    finally:
+        PosteriorEngine._assemble = inner
+    head, tail = asm.assemble_head.launches, asm.assemble_tail.launches
+    want = res["passes"] if card else 0
+    if not res["passes"] or head != want or tail != want:
+        raise PhaseError(f"{what}: {res['passes']} assemble passes launched the head "
+                         f"{head} and the tail {tail} times, not once each a pass")
 
 
 def edge_rows(seed, dev, L=16, B=3, D=24, U=37):
@@ -609,6 +665,75 @@ def phase_lfc_star_vs_plain(timer=cuda_ms):
             "cases": cases, "max_abs_err": max(c["max_abs_err"] for c in cases)}, timed["cell"]
 
 
+def assemble_bytes(tables, head, tail):
+    """The bytes bound of the pass's head and tail: every input read once
+    (the tables included) and every output written once."""
+    bv, gates, n_art, _, w = head
+    d_own, U0, _, marginal = tail
+    L, B, NB = bv.shape
+    E, S = tables.n_events, len(w)
+    table_bytes = sum(x.numel() * x.element_size() for x in (
+        tables.ev_ptr, tables.ev_br, tables.ev_art, tables.art_br, tables.branch_event))
+    w_bytes = sum(x.numel() * 4 for x in w)
+    head_bytes = (bv.numel() * 4 + gates.numel() + (0 if n_art is None else L * 4) + table_bytes
+                  + 2 * w_bytes + L * (2 * E * 4 + 4 + B * 4 + 8))
+    widths = [k + b.shape[0] for k, b in zip(tables.top_k, tables.backbone)]
+    tail_bytes = (sum(x.numel() * 4 for x in d_own) + sum(u.numel() * 4 for u in U0) + L * 4
+                  + sum(v.numel() * 4 for v in tables.values)
+                  + sum(b.numel() * 8 for b in tables.backbone)
+                  + L * (S * 4 + 2 * sum(widths) + 2 * sum(tables.top_k)))
+    return head_bytes, tail_bytes
+
+
+def phase_assemble_vs_plain(timer=cuda_ms):
+    """(a'''''): the engine's event and MAP / AFD pass, its head and tail
+    kernels (csrc/assemble.cu), against their plain versions on the card,
+    on every case of ``bench_utils.assemble_args``
+    (``bench_utils.assemble_mismatches`` at LC_TOL); the AS_TIMED cases
+    timed with CUDA events (the card held ahead of the host) beside their
+    bytes bound and the plain versions."""
+    from varlociraptor_tpu_torch.bench_utils import (
+        ASSEMBLE_CASES, assemble_args, assemble_mismatches,
+    )
+    from varlociraptor_tpu_torch.ops import assemble as asm
+
+    cases = []
+    for name in ASSEMBLE_CASES:
+        tables, head, tail = assemble_args(name, "cuda", seed=5)
+        n0 = asm.assemble_head.launches + asm.assemble_tail.launches
+        got_head = asm.assemble_head(*head, tables)
+        got_tail = asm.assemble_tail(*tail, tables)
+        if asm.assemble_head.launches + asm.assemble_tail.launches != n0 + 2:
+            raise PhaseError(f"assemble {name}: the kernels did not launch once each")
+        ref_head = asm.assemble_head_reference(*head, tables)
+        ref_tail = asm.assemble_tail_reference(*tail, tables)
+        problems, worst = assemble_mismatches(tables, tail, got_head, ref_head, got_tail,
+                                              ref_tail, LC_TOL)
+        if problems:
+            raise PhaseError(f"assemble {name}: {problems}")
+        bv = head[0]
+        case = {"case": name, "L": bv.shape[0], "B": bv.shape[1], "NB": bv.shape[2],
+                "E": tables.n_events, "G": [v.shape[0] for v in tables.values],
+                "components": len(tail[1]), "worst": worst,
+                "max_abs_err": max(v for k, v in worst.items()
+                                   if "near" not in k and "off_by" not in k)}
+        if name in AS_TIMED:
+            head_bytes, tail_bytes = assemble_bytes(tables, head, tail)
+            case["head"] = {
+                "ms": timer(lambda: asm.assemble_head(*head, tables), 50, ahead=True),
+                "plain_ms": timer(lambda: asm.assemble_head_reference(*head, tables), 5),
+                "bytes": head_bytes, "bound_ms": head_bytes / PEAK_BYTES * 1e3}
+            case["tail"] = {
+                "ms": timer(lambda: asm.assemble_tail(*tail, tables), 50, ahead=True),
+                "plain_ms": timer(lambda: asm.assemble_tail_reference(*tail, tables), 5),
+                "bytes": tail_bytes, "bound_ms": tail_bytes / PEAK_BYTES * 1e3}
+            for part in ("head", "tail"):
+                case[part]["roofline_share"] = case[part]["bound_ms"] / case[part]["ms"]
+        cases.append(case)
+    return {"phase": "assemble_vs_plain", "tol_rel": LC_TOL, "cases": cases,
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}, cases[0]
+
+
 def phase_engine(engine, L=32768, n_plain=1024):
     import numpy as np
     import torch
@@ -622,14 +747,17 @@ def phase_engine(engine, L=32768, n_plain=1024):
     engine.run(*inputs)  # warm-up: first launches, allocator growth
     n0, c0 = k1.ll_classes.launches, lc.lse_contract.launches
     times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        out = engine.run(*inputs)  # every output lands on the host
-        times.append(time.perf_counter() - t0)
+    with assemble_passes("engine", engine.device.type == "cuda") as passes:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = engine.run(*inputs)  # every output lands on the host
+            times.append(time.perf_counter() - t0)
     launches = k1.ll_classes.launches - n0
     contractions = lc.lse_contract.launches - c0
     if launches != 2 * len(times):
         raise PhaseError(f"engine: K1 launched {launches} times in {len(times)} calls")
+    if passes["passes"] != len(times):
+        raise PhaseError(f"engine: {passes['passes']} assemble passes in {len(times)} calls")
     if contractions != 4 * len(times):
         raise PhaseError(f"engine: the contraction launched {contractions} times in "
                          f"{len(times)} calls")
@@ -651,6 +779,7 @@ def phase_engine(engine, L=32768, n_plain=1024):
         "seconds": times, "loci_per_s": L / best,
         "k1_launches_per_call": launches // len(times),
         "contractions_per_call": contractions // len(times),
+        "assemble_passes_per_call": passes["passes"] // len(times),
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
                         if engine.device.type == "cuda" else None),
         "vs_plain_head": {"n_loci": n_plain, "max_rel": info["max_rel"], "af_max": info["af_max"],
@@ -693,11 +822,12 @@ def phase_cli(work, n_loci=100_000, n_cpu=2000, device="cuda"):
     calls = work / "calls.vcf"
     k1.ll_classes.launches = 0  # main path starts here
     lc.lse_contract.launches = 0
-    t0 = time.perf_counter()
-    rc = cli.run(["call", "variants", "tumor-normal", "--tumor", tumor,
-                  "--normal", normal, "--purity", "0.75", "--device", device,
-                  "--output", str(calls)])
-    call_s = time.perf_counter() - t0
+    with assemble_passes("cli", device == "cuda") as passes:
+        t0 = time.perf_counter()
+        rc = cli.run(["call", "variants", "tumor-normal", "--tumor", tumor,
+                      "--normal", normal, "--purity", "0.75", "--device", device,
+                      "--output", str(calls)])
+        call_s = time.perf_counter() - t0
     launches, contractions = k1.ll_classes.launches, lc.lse_contract.launches
     filtered = work / "somatic.fdr.vcf"
     t0 = time.perf_counter()
@@ -739,6 +869,7 @@ def phase_cli(work, n_loci=100_000, n_cpu=2000, device="cuda"):
         "synth_s": synth_s, "call_s": call_s, "call_loci_per_s": n_loci / call_s,
         "fdr_s": fdr_s, "k1_launches": launches, "contractions": contractions,
         "contractions_per_window": contractions / -(-n_loci // 1024),
+        "assemble_passes": passes["passes"],
         "cpu_2k_call_s": cpu_s, "cpu_vs_cuda_topk_swapped_lines": swapped,
     }, launches
 
@@ -1357,7 +1488,8 @@ def mode_run(name, engine, n_loci, table):
     ls.lfc_star.launches = 0
     engine.loop_steps = 0
     ms, wall, runs = [], [], 3
-    with k1_shapes() as shapes:
+    with k1_shapes() as shapes, assemble_passes(
+            f"engine_modes {name}", engine.device.type == "cuda") as passes:
         for _ in range(runs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1376,6 +1508,9 @@ def mode_run(name, engine, n_loci, table):
     if contractions % runs:
         raise PhaseError(f"engine_modes {name}: the contraction launched {contractions} "
                          f"times in {runs} calls")
+    if passes["passes"] != runs:
+        raise PhaseError(f"engine_modes {name}: {passes['passes']} assemble passes in "
+                         f"{runs} calls")
     # the star l2fc integral: one launch a star branch, no plain loop step
     if star != runs * len(engine.branch_lfc_masks) * (name == "l2fc") or (
             name == "l2fc" and steps):
@@ -1410,6 +1545,7 @@ def mode_run(name, engine, n_loci, table):
         "loop_steps_per_call": steps // runs,
         "contractions_per_call": contractions // runs,
         "lfc_star_launches_per_call": star // runs,
+        "assemble_passes_per_call": passes["passes"] // runs,
         "vs_plain_head": {"n_loci": min(MODES_PLAIN, n_loci), "seconds": plain_s,
                           "max_rel": info["max_rel"], "af_max": info["af_max"],
                           "af_flat": len(info["af_flat"]),
@@ -1477,9 +1613,10 @@ def phase_engine_modes(work):
             f"tumor={tumor}", f"normal={normal}", "--full-prior"]
     k1.ll_classes.launches = 0  # main path starts here
     lc.lse_contract.launches = 0
-    t0 = time.perf_counter()
-    rc = cli.run(argv + ["--device", "cuda", "--output", str(calls)])
-    call_s = time.perf_counter() - t0
+    with assemble_passes("engine_modes cli") as passes:
+        t0 = time.perf_counter()
+        rc = cli.run(argv + ["--device", "cuda", "--output", str(calls)])
+        call_s = time.perf_counter() - t0
     cli_launches, contractions["cli"] = k1.ll_classes.launches, lc.lse_contract.launches
     calls_text = calls.read_text()
     n_called = len(vcf_record_keys(calls_text))
@@ -1506,6 +1643,7 @@ def phase_engine_modes(work):
         "call_loci_per_s": MODES_CLI_LOCI / call_s, "k1_launches": cli_launches,
         "k1_launches_per_window": cli_launches / windows,
         "contractions_per_window": contractions["cli"] / windows,
+        "assemble_passes": passes["passes"],
         "cpu_2k_call_s": cpu_s, "cpu_vs_cuda_topk_swapped_lines": swapped,
     }
     res["prior_table_trio"] = prior_table_seconds()
@@ -2339,24 +2477,28 @@ def sharded_rank(spec):
     per_shard = []
     with shard_launches(per_shard):
         k1.ll_classes.launches = lc.lse_contract.launches = 0  # main path
-        t0 = time.perf_counter()
-        out = run_sharded(engine, mesh, *local)
-        engine_s = time.perf_counter() - t0
+        with assemble_passes(f"rank {rank} engine", device == "cuda") as passes:
+            t0 = time.perf_counter()
+            out = run_sharded(engine, mesh, *local)
+            engine_s = time.perf_counter() - t0
         rep.update(engine_s=engine_s, engine_loci_per_s=half / engine_s,
                    engine_k1_launches=k1.ll_classes.launches,
                    engine_k1_per_shard=list(per_shard),
-                   engine_contractions=lc.lse_contract.launches)
+                   engine_contractions=lc.lse_contract.launches,
+                   engine_assemble_passes=passes["passes"])
         per_shard.clear()
         k1.ll_classes.launches = lc.lse_contract.launches = 0  # main path
         obs = dict(zip(("tumor", "normal"), spec["obs"][rank]))
-        t0 = time.perf_counter()
-        n = call_generic(tumor_normal_scenario(0.75), obs, spec["calls"][rank],
-                         CallOptions(), mesh=mesh, device=device)
-        call_s = time.perf_counter() - t0
+        with assemble_passes(f"rank {rank} call", device == "cuda") as passes:
+            t0 = time.perf_counter()
+            n = call_generic(tumor_normal_scenario(0.75), obs, spec["calls"][rank],
+                             CallOptions(), mesh=mesh, device=device)
+            call_s = time.perf_counter() - t0
     rep.update(call_loci=n, call_s=call_s, call_loci_per_s=n / call_s,
                call_k1_launches=k1.ll_classes.launches, call_shards=len(per_shard),
                call_contractions=lc.lse_contract.launches,
-               call_k1_per_shard=sorted(set(per_shard)))
+               call_k1_per_shard=sorted(set(per_shard)),
+               call_assemble_passes=passes["passes"])
     t0 = time.perf_counter()
     rep["fdr_kept"] = control_fdr_sharded([spec["calls"][rank]], spec["kept"][rank],
                                           ["somatic_tumor"], alpha=0.05, mesh=mesh)
@@ -2482,10 +2624,12 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
     k1.ll_classes.launches = lc.lse_contract.launches = 0  # main path
     t0 = time.perf_counter()
     try:
-        res["dryrun"] = dryrun_multichip(
-            torch.cuda.device_count() if device == "cuda" else 2, device, work / "dryrun")
+        with assemble_passes("sharded dryrun", device == "cuda") as passes:
+            res["dryrun"] = dryrun_multichip(
+                torch.cuda.device_count() if device == "cuda" else 2, device, work / "dryrun")
     except AssertionError as e:
         raise PhaseError(f"sharded: dryrun_multichip: {e}") from None
+    assembled = {"dryrun": passes["passes"]}
     res["dryrun"]["seconds"] = time.perf_counter() - t0
     launches["dryrun"] = k1.ll_classes.launches
     contractions["dryrun"] = lc.lse_contract.launches
@@ -2503,12 +2647,14 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
         single_s.append(time.perf_counter() - t0)
     run_sharded(engine, mesh, *inputs)
     sharded_s, per_shard = [], []
-    with shard_launches(per_shard):
+    with shard_launches(per_shard), assemble_passes("sharded two_shards",
+                                                             device == "cuda") as passes:
         k1.ll_classes.launches = lc.lse_contract.launches = 0  # main path
         for _ in range(J2_REPEATS):
             t0 = time.perf_counter()
             out = run_sharded(engine, mesh, *inputs)
             sharded_s.append(time.perf_counter() - t0)
+    assembled["two_shards"] = passes["passes"]
     launches["two_shards"] = k1.ll_classes.launches
     contractions["two_shards"] = lc.lse_contract.launches
     problems, info = compare_outputs(single, out)
@@ -2519,6 +2665,9 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
     if contractions["two_shards"] != 4 * len(per_shard):
         raise PhaseError(f"sharded: the contraction launched {contractions['two_shards']} "
                          f"times in {len(per_shard)} shards, not 4 in each")
+    if assembled["two_shards"] != len(per_shard):
+        raise PhaseError(f"sharded: {assembled['two_shards']} assemble passes in "
+                         f"{len(per_shard)} shards, not one in each")
     res["two_shards"] = {
         "n_loci": SHARDED_LOCI, "depth": 64, "resolution": 0.01,
         "devices": [str(d) for d in mesh.devices], "seconds": sharded_s,
@@ -2551,6 +2700,7 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
             raise PhaseError(f"sharded: rank {rep['rank']}: {rep}")
         if rep["engine_k1_per_shard"] != [2] or rep["call_k1_launches"] == 0 \
                 or rep["engine_contractions"] != 4 or rep["call_contractions"] == 0 \
+                or rep["engine_assemble_passes"] != 1 \
                 or rep["call_loci"] != half:
             raise PhaseError(f"sharded: rank {rep['rank']} launched K1 or the contraction {rep}")
     parts = [dict(np.load(p)) for p in spec["out"]]
@@ -2577,11 +2727,14 @@ def phase_sharded(work, engine, cli_files, device="cuda"):
     launches["ranks"] = sum(r["engine_k1_launches"] + r["call_k1_launches"] for r in reports)
     contractions["ranks"] = sum(r["engine_contractions"] + r["call_contractions"]
                                 for r in reports)
+    assembled["ranks"] = sum(r["engine_assemble_passes"] + r["call_assemble_passes"]
+                             for r in reports)
 
     # (j4) NCCL, one rank
     res["nccl_one_rank"] = nccl_one_rank()
     res["k1_launches"] = launches
     res["contractions"] = contractions
+    res["assemble_passes"] = assembled
     return res, sum(launches.values())
 
 
@@ -2913,7 +3066,10 @@ def main():
     emit(a4)
     a5, lfs_bench = phase_lfc_star_vs_plain()
     emit(a5)
-    emit(phase_engine(engine))
+    a6, as_bench = phase_assemble_vs_plain()
+    emit(a6)
+    b = phase_engine(engine)
+    emit(b)
     c, launches = phase_cli(work)
     emit(c)
     d, hmm_launches, serial = phase_preprocess(work, pp_world)
@@ -2962,6 +3118,15 @@ def main():
         **{k: case[k] for k in ("B", "Xp", "Yp", "tile")}, **timing(case)}}
     lc_by_phase = {"cli": c["contractions"], "engine_modes": f["contractions"],
                    "sharded": j["contractions"]}
+    # the assemble head and tail launch once each a pass: the checked cases
+    # of (a''''') (not its timing loops) and the main path's passes
+    as_by_phase = {"assemble_vs_plain": len(a6["cases"]),
+                   "engine": b["assemble_passes_per_call"] * len(b["seconds"]),
+                   "cli": c["assemble_passes"],
+                   "engine_modes": {**{m["mode"]: m["assemble_passes_per_call"] * 3
+                                       for m in f["modes"]},
+                                    "cli": f["cli"]["assemble_passes"]},
+                   "sharded": j["assemble_passes"]}
     emit({"kernels": [{
         "name": "ll_classes", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
@@ -3010,7 +3175,14 @@ def main():
                                                for m in f["modes"]}},
         "max_abs_err": a5["max_abs_err"], **timing(lfs_bench), "library_ms": None,
         "shape": lfs_bench["shape"],
-    }]})
+    }] + [{
+        "name": f"assemble_{part}", "route": "cuda", "source": AS_SOURCE,
+        "replaces": AS_REPLACES,
+        "launches": sum(n if isinstance(n, int) else sum(n.values())
+                        for n in as_by_phase.values()),
+        "launches_by_phase": as_by_phase, "max_abs_err": a6["max_abs_err"], **as_bench[part], "library_ms": None,
+        "shape": {k: as_bench[k] for k in ("L", "B", "NB", "E", "G")},
+    } for part in ("head", "tail")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

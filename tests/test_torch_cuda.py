@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels on the card: K1 (csrc/ll_classes.cu),
 K2, K3 and K4 (csrc/pairhmm_column.cu), each of K2-K4 at every tile, the
-engine's grid contraction (csrc/lse_contract.cu) and its star l2fc integral
-(csrc/lfc_star.cu).
+engine's grid contraction (csrc/lse_contract.cu), its star l2fc integral
+(csrc/lfc_star.cu) and its event and MAP / AFD pass (csrc/assemble.cu).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false.  On a machine with an NVIDIA card and nvcc:
@@ -17,7 +17,11 @@ the plain version gives it; the grid contraction against its plain version
 sum over v in another order than the einsum's); the star l2fc integral
 against its plain version within 2e-6 * |x| or 1e-4, whichever is larger,
 with -inf in the same places and no NaN (float32 ex2.approx, the sum over
-(g, ga, gb) in another order than the loop's); the engine on the card against the engine on
+(g, ga, gb) in another order than the loop's); the event and MAP / AFD
+pass's two kernels against their plain versions at LSE_TOL with -inf and
+NaN alike, the MAP event and the top-K indices equal but at near ties
+(bench_utils.assemble_mismatches), the deci-PHRED values apart by 1 only
+near a half; the engine on the card against the engine on
 the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py, in
 tumor-normal and in chip_smoke.py phase (f)'s modes (--full-prior, l2fc,
 cyclic contamination); the legacy per-WorkItem caller's VCF on the card
@@ -39,10 +43,13 @@ import pytest
 import torch
 
 from varlociraptor_tpu_torch.bench_utils import (
+    ASSEMBLE_CASES,
     K1_EDGE_CASES,
     LFC_STAR_CASES,
     LSE_CONTRACT_CASES,
     PAIRHMM_TILE_WIDTHS,
+    assemble_args,
+    assemble_mismatches,
     cyclic_engine,
     engine_inputs,
     full_prior_table,
@@ -59,6 +66,7 @@ from varlociraptor_tpu_torch.bench_utils import (
 )
 from varlociraptor_tpu_torch.compare import compare_outputs
 from varlociraptor_tpu_torch.estimation.alignment_properties import HopParams
+from varlociraptor_tpu_torch.ops import assemble as asm
 from varlociraptor_tpu_torch.ops import lfc_star as ls
 from varlociraptor_tpu_torch.ops import ll_classes as k1
 from varlociraptor_tpu_torch.ops import lse_contract as lc
@@ -271,14 +279,93 @@ def test_l2fc_window_on_the_card_runs_the_star_kernel(card):
     assert counts["engine.lfc_steps"] == 0 and engine.loop_steps == 0
 
 
+@pytest.mark.parametrize("name", ASSEMBLE_CASES)
+def test_assemble_kernels_match_plain(card, name):
+    """The event and MAP / AFD pass's head and tail kernels against their
+    plain versions on the card (bench_utils.assemble_args): the two cells'
+    engines at 1024 loci, three components, a 1001-point grid, a two-point
+    grid, one combination slot, exact ties in the events and densities,
+    rows -inf throughout, events compiled to False, and 13,000 events and
+    branches (past a block's default 48 KB of shared memory in both)."""
+    tables, head, tail = assemble_args(name, card, seed=5)
+    h0, t0 = asm.assemble_head.launches, asm.assemble_tail.launches
+    got_head = asm.assemble_head(*head, tables)
+    got_tail = asm.assemble_tail(*tail, tables)
+    assert (asm.assemble_head.launches, asm.assemble_tail.launches) == (h0 + 1, t0 + 1)
+    ref_head = asm.assemble_head_reference(*head, tables)
+    ref_tail = asm.assemble_tail_reference(*tail, tables)
+    torch.cuda.synchronize()
+    for g, r in zip(got_head[:5] + got_tail, ref_head[:5] + ref_tail):
+        assert g.shape == r.shape and g.dtype == r.dtype
+    problems, _ = assemble_mismatches(tables, tail, got_head, ref_head, got_tail, ref_tail,
+                                      LSE_TOL)
+    assert not problems, problems
+
+
+def test_assemble_wrappers_check_their_inputs(card):
+    tables, head, tail = assemble_args("trio", card, L=8)
+    bv, gates, n_art, n_combos, w = head
+    d_own, U0, comp_of, marginal = tail
+    cpu_tables = assemble_args("trio", "cpu", L=8)[0]
+    h0, t0 = asm.assemble_head.launches, asm.assemble_tail.launches
+    with pytest.raises(TypeError, match="float32"):
+        asm.assemble_head(bv.double(), gates, n_art, n_combos, w, tables)
+    with pytest.raises(ValueError, match="contiguous"):
+        asm.assemble_head(bv.transpose(1, 2).contiguous().transpose(1, 2), gates, n_art,
+                          n_combos, w, tables)
+    with pytest.raises(ValueError, match="on cpu"):
+        asm.assemble_head(bv, gates, n_art, n_combos, [w[0].cpu()] + w[1:], tables)
+    with pytest.raises(ValueError, match="tables on cpu"):
+        asm.assemble_head(bv, gates, n_art, n_combos, w, cpu_tables)
+    with pytest.raises(ValueError, match="d_own"):
+        asm.assemble_tail(d_own[:-1], U0, comp_of, marginal, tables)
+    with pytest.raises(ValueError, match="contiguous"):
+        asm.assemble_tail(d_own, U0, comp_of, torch.stack([marginal] * 2, 1)[:, 0], tables)
+    with pytest.raises(ValueError, match="tables on cpu"):
+        asm.assemble_tail(d_own, U0, comp_of, marginal, cpu_tables)
+    assert (asm.assemble_head.launches, asm.assemble_tail.launches) == (h0, t0)
+
+
+def test_engine_window_on_the_card_runs_the_assemble_kernels(card):
+    """One traced tumor-normal window: the pass is one launch of each
+    kernel, counted in ``engine.assemble_launches``, and its stream time in
+    ``engine.assemble_stream_ns``, within the span ``engine.assemble``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from varlociraptor_tpu_torch import tracing
+
+    _, engine = tumor_normal_engine(resolution=0.01, device=card)
+    inputs = engine_inputs(engine, n_loci=64, depth=32, seed=6)
+    engine.run(*inputs)  # warm-up, untraced
+    log = tracing.Log()
+    saved, tracing.LOG = tracing.LOG, log
+    h0, t0 = asm.assemble_head.launches, asm.assemble_tail.launches
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            engine.run(*inputs)
+    finally:
+        tracing.LOG = saved
+    counts, spans = {}, []
+    for _, rec in log.records():
+        if rec[6] is not None:
+            counts[rec[0]] = counts.get(rec[0], 0) + rec[6]
+        elif rec[0] == "engine.assemble":
+            spans.append(rec)
+    assert (asm.assemble_head.launches, asm.assemble_tail.launches) == (h0 + 1, t0 + 1)
+    assert counts["engine.assemble_launches"] == 2
+    assert len(spans) == 1 and counts["engine.assemble_stream_ns"] > 0
+
+
 def test_engine_on_the_card_matches_the_cpu(card):
     _, gpu = tumor_normal_engine(resolution=0.01, device=card)
     _, cpu = tumor_normal_engine(resolution=0.01, device="cpu")
     inputs = engine_inputs(cpu, n_loci=96, depth=32, seed=5)
     n0, c0 = k1.ll_classes.launches, lc.lse_contract.launches
+    a0 = asm.assemble_head.launches + asm.assemble_tail.launches
     got = gpu.run(*inputs)
     assert k1.ll_classes.launches == n0 + 2
     assert lc.lse_contract.launches == c0 + 4
+    assert asm.assemble_head.launches + asm.assemble_tail.launches == a0 + 2
     ref = cpu.run(*inputs)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
     assert not problems, problems[:5]
@@ -354,7 +441,10 @@ def test_engine_modes_on_the_card_match_the_cpu(card, name, k1_per_call,
     pj = None if table is None else np.ascontiguousarray(
         np.broadcast_to(table, (L,) + table.shape))
     n0, c0, s0 = k1.ll_classes.launches, lc.lse_contract.launches, ls.lfc_star.launches
+    h0, t0 = asm.assemble_head.launches, asm.assemble_tail.launches
     got = gpu.run(*inputs, ln_prior_joint=pj)
+    # the event and MAP / AFD pass: one launch of each of its kernels
+    assert (asm.assemble_head.launches, asm.assemble_tail.launches) == (h0 + 1, t0 + 1)
     assert k1.ll_classes.launches == n0 + k1_per_call
     assert lc.lse_contract.launches == c0 + contractions_per_call
     # the star l2fc integral: one launch a branch of the l2fc scenario
@@ -365,8 +455,9 @@ def test_engine_modes_on_the_card_match_the_cpu(card, name, k1_per_call,
 
 
 def test_legacy_call_on_the_card_matches_the_cpu(card, tmp_path, monkeypatch):
-    """The legacy per-WorkItem caller (VLT_LEGACY_CALL=1): K1 launches in
-    every ``call_batch`` (two per engine call, one engine call per 64-locus
+    """The legacy per-WorkItem caller (VLT_LEGACY_CALL=1): K1 and the event
+    and MAP / AFD pass's kernels launch in every ``call_batch`` (two K1 and
+    one head and one tail per engine call, one engine call per 64-locus
     batch) and the VCF equals the CPU's within compare_vcf_text."""
     from varlociraptor_tpu_torch.bench_utils import synth_observation_files
     from varlociraptor_tpu_torch.calling.call import DEFAULT_BATCH, call_generic
@@ -378,9 +469,12 @@ def test_legacy_call_on_the_card_matches_the_cpu(card, tmp_path, monkeypatch):
     obs = {"tumor": tumor, "normal": normal}
     monkeypatch.setenv("VLT_LEGACY_CALL", "1")
     n0 = k1.ll_classes.launches
+    h0, t0 = asm.assemble_head.launches, asm.assemble_tail.launches
     assert call_generic(tumor_normal_scenario(0.75), obs, str(tmp_path / "gpu.vcf"),
                         device=card) == n_loci
     assert k1.ll_classes.launches - n0 == 2 * -(-n_loci // DEFAULT_BATCH)
+    assert asm.assemble_head.launches - h0 == asm.assemble_tail.launches - t0 == -(
+        -n_loci // DEFAULT_BATCH)
     call_generic(tumor_normal_scenario(0.75), obs, str(tmp_path / "cpu.vcf"), device="cpu")
     problems, _ = compare_vcf_text((tmp_path / "cpu.vcf").read_text(),
                                    (tmp_path / "gpu.vcf").read_text())

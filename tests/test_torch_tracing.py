@@ -33,6 +33,7 @@ SPANS = {
     "call.read": (MAIN, "call.generic", PER_WINDOW | {N_WINDOWS}),  # and the last, empty read
     "call.pack": (MAIN, "call.generic", PER_WINDOW),
     "engine.dispatch": (MAIN, "call.pack", PER_WINDOW),
+    "engine.assemble": (MAIN, "engine.dispatch", PER_WINDOW),
     "call.wait_drain": (MAIN, "call.generic", PER_WINDOW | {-1}),  # and the final join
     "call.drain": (DRAIN, None, {-1}),
     "call.wait_main": (DRAIN, "call.drain", PER_WINDOW | {N_WINDOWS}),  # and the end mark
@@ -104,13 +105,18 @@ def test_call_path_counters(traced_call, monkeypatch):
     counters = {}
     for _, (name, th, s, e, _, window, n) in log.records():
         if n is not None:
-            assert s == e and th == MAIN
+            # the stream times are read where the fetch completes
+            assert s == e and th == (DRAIN if name.endswith("_stream_ns") else MAIN)
             counters.setdefault(name, []).append((window, n))
     assert counters["call.windows"] == [(w, 1) for w in range(N_WINDOWS)]
     assert sum(n for _, n in counters["call.loci"]) == traced_call["n"] == traced_call["written"]
     assert [n for _, n in counters["call.loci"]] == [64, 64, 22]
     assert sum(n for _, n in counters["engine.dispatches"]) >= N_WINDOWS
     assert all(n > 0 for _, n in counters["engine.h2d_bytes"])
+    # one assemble pass a window, its kernels on the card only
+    assert len(counters["engine.assemble_stream_ns"]) == N_WINDOWS
+    assert all(n > 0 for _, n in counters["engine.assemble_stream_ns"])
+    assert "engine.assemble_launches" not in counters
     assert log.dropped == 0
     monkeypatch.setattr(tracing, "LOG", log)
     summary = tracing.summary(*traced_call["window"])
@@ -266,7 +272,7 @@ def test_lfc_pass_records_its_span_and_counters():
     tumor, relapse, normal = (engine.values_s[i].size for i in (1, 2, 0))
     L, B = args[0].shape[0], args[2].shape[2]
     branches = len(engine._lfc_t)  # the two l2fc events and their artifact twins
-    assert branches == 4 and not engine._lfc_marks
+    assert branches == 4 and not engine._stream_marks
     # one star integral a branch: every (tumor, relapse, normal) grid cell
     assert counters["engine.lfc_cells"] == branches * L * B * tumor * relapse * normal
     assert counters["engine.lfc_steps"] == branches * normal
@@ -278,4 +284,4 @@ def test_lfc_pass_records_its_span_and_counters():
 
 def test_lfc_pass_records_nothing_untraced():
     engine, _, log = _lfc_window(traced=False)
-    assert log.issued == 0 and not engine._lfc_marks and engine.loop_steps > 0
+    assert log.issued == 0 and not engine._stream_marks and engine.loop_steps > 0

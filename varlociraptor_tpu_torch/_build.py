@@ -134,5 +134,15 @@ def load():
             # Gb, Gp; the strides of pa, wa, pb, wb, lm and rp
             lib.vlt_lfc_star.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_longlong] * 17 + [p]
             lib.vlt_lfc_star.restype = i
+            # the event and MAP / AFD pass: the head (bv, gates, n_art, its
+            # log where n_art is null, the event and artifact tables, L, B,
+            # NB, E, S, the host table of the samples, five outputs) and the
+            # tail (the host tables of the samples and of the components, L,
+            # NB, marginal, af, the deci-PHRED and index outputs and widths)
+            lib.vlt_assemble_head.argtypes = (
+                [p, p, p, ctypes.c_float, p, p, p, p, i, p] + [i] * 5 + [p] * 6 + [p])
+            lib.vlt_assemble_head.restype = i
+            lib.vlt_assemble_tail.argtypes = [p, i, p, i, i, i, p, p, p, i, p, i, p]
+            lib.vlt_assemble_tail.restype = i
             _lib = lib
         return _lib

@@ -444,6 +444,260 @@ def lfc_star_args(name, device, L=None, seed=0):
     return t(pa), t(wa)[:, 1], t(pb), t(wb)[:, 1], t(lm), t(rp)
 
 
+# one diploid sample (the engine's one-sample route): het and hom events,
+# and one "present" event, which on a grid of resolution 1 leaves the
+# sample two grid points (no parabola)
+ONE_SAMPLE_SCENARIO = {
+    "samples": {"s": {"universe": "[0.0,1.0]", "ploidy": 2}},
+    "species": {"heterozygosity": 0.001},
+    "events": {"het": "s:0.5", "hom": "s:1.0"},
+}
+PRESENT_SCENARIO = {
+    "samples": {"s": {"universe": "[0.0,1.0]", "ploidy": 2}},
+    "species": {"heterozygosity": 0.001},
+    "events": {"present": "s:]0.0,1.0]"},
+}
+
+# tumor / relapse / normal as the relapse_l2fc.call3 cell deploys it: the
+# normal on its coarse ploidy grid, tumor and relapse contaminated by it at
+# resolution 0.01, somatic events split three ways by l2fc(relapse, tumor)
+RELAPSE_SCENARIO = {
+    "samples": {
+        "tumor": {"resolution": 0.01, "contamination": {"by": "normal", "fraction": 0.25},
+                  "universe": "[0.0,1.0]"},
+        "relapse": {"resolution": 0.01, "contamination": {"by": "normal", "fraction": 0.4},
+                    "universe": "[0.0,1.0]"},
+        "normal": {"resolution": 0.1, "universe": "[0.0,0.5[ | 0.5 | 1.0"},
+    },
+    "events": {
+        "germline_het": "normal:0.5",
+        "germline_hom": "normal:1.0",
+        "somatic_stable": "normal:0.0 & tumor:]0.0,1.0] & relapse:]0.0,1.0] "
+                          "& l2fc(relapse, tumor) >= -1 & l2fc(relapse, tumor) <= 1",
+        "somatic_expanded": "normal:0.0 & tumor:]0.0,1.0] & relapse:]0.0,1.0] "
+                            "& l2fc(relapse, tumor) > 1",
+        "somatic_receded": "normal:0.0 & tumor:]0.0,1.0] & relapse:]0.0,1.0] "
+                           "& l2fc(relapse, tumor) < -1",
+        "somatic_lost": "normal:0.0 & tumor:]0.0,1.0] & relapse:0.0",
+        "somatic_relapse_only": "normal:0.0 & tumor:0.0 & relapse:]0.0,1.0]",
+    },
+}
+
+# cases of the engine's event and MAP / AFD pass (see assemble_args)
+ASSEMBLE_CASES = ("tumor_normal", "relapse_l2fc", "trio", "g1001", "g2", "b1", "ties",
+                  "neg_inf", "false_event", "wide")
+
+
+def false_event_engine(device="cuda"):
+    """The tumor-normal engine with two events compiled to False (no
+    branch; the second an artifact event) among the others."""
+    from .grammar.scenario import Scenario
+    from .ops.event_program import EventSpec
+
+    scenario = Scenario(tumor_normal_scenario(0.75).doc)
+    events, grid_points = compile_scenario_events(scenario, "chr1")
+    events = (events[:2] + [EventSpec("never", ())] + events[2:6]
+              + [EventSpec("never_artifact", (), is_artifact=True)] + events[6:])
+    samples = [SampleConfig("tumor", contaminated_by=1, contamination_fraction=0.25),
+               SampleConfig("normal")]
+    return PosteriorEngine(events, AFGrid.build(0.01, extra_points=grid_points), samples,
+                           resolution=0.01, all_uniform_prior=True,
+                           n_artifact_combos=len(FULL_COMBOS_DEFAULT) - 1, device=device)
+
+
+def assemble_engine(name, device="cuda"):
+    """The engine whose tables a case of :func:`assemble_args` uses."""
+    if name == "relapse_l2fc":
+        return scenario_engine(RELAPSE_SCENARIO, 0.01, device, all_uniform_prior=False)[1]
+    if name == "trio":
+        return scenario_engine(TRIO_SCENARIO, 0.1, device)[1]
+    if name == "g1001":
+        sample = {**ONE_SAMPLE_SCENARIO["samples"]["s"], "resolution": 0.001}
+        return scenario_engine({**ONE_SAMPLE_SCENARIO, "samples": {"s": sample}}, 0.001,
+                               device)[1]
+    if name == "g2":
+        return scenario_engine(PRESENT_SCENARIO, 1.0, device)[1]
+    if name == "false_event":
+        return false_event_engine(device)
+    return tumor_normal_engine(0.01, device=device)[1]
+
+
+def wide_assemble_tables(device, E=13_000, G=(11, 5)):
+    """(tables, grid sizes, each sample's component, components) of no
+    engine: E events of one branch each (every 997th an artifact event)
+    and two samples of G points, each a component of its own.  Past a
+    block's default 48 KB of shared memory in both kernels: the head's E
+    event values (4 bytes each) and the tail's four warps' NB other-component
+    sums."""
+    from .ops.assemble import AssembleTables
+
+    values = [torch.linspace(0.0, 1.0, g, dtype=torch.float32, device=device) for g in G]
+    backbones = [np.unique(np.round(np.linspace(0, g - 1, min(16, g))).astype(np.int32))
+                 for g in G]
+    tables = AssembleTables([[e] for e in range(E)], [e % 997 == 3 for e in range(E)],
+                            np.arange(E), values, backbones, 16, device)
+    return tables, list(G), [0, 1], 2
+
+
+def assemble_args(name, device, L=None, seed=0):
+    """(tables, head, tail) of one case of ``ops.assemble``, on ``device``:
+    the engine's ``AssembleTables``; the head's (branch_val [L, B, NB] ~
+    N(-30, 10) with whole slots b >= 1 at -inf at half the loci, the gates
+    (5% off), n_artifact_active in 0-8 or None, the engine's combination
+    count, the weights [L, NB, Gi] ~ N(-3, 1) with 20% at -inf); the tail's
+    (d_own [L, 1, NB, Gi] ~ N(-20, 8) with 10% at -inf, a strided view, U0
+    a component [L, 1, NB] ~ N(-15, 5), each sample's component, the
+    marginal [L] ~ N(-10, 3) with 5% at -inf).  The cases:
+
+    * ``tumor_normal``, ``relapse_l2fc``: the two cells' engines, L 1024, B 8;
+    * ``trio``: three components, 11-point grids; ``g1001``: one sample at
+      resolution 0.001; ``g2``: one sample on a two-point grid;
+    * ``b1``: one combination slot; ``false_event``: two events without a
+      branch;
+    * ``ties``: integer branch values and densities equal in runs of four
+      grid points (exact ties in the events and the top-K);
+    * ``neg_inf``: loci whose branch values, weights, densities or marginal
+      are -inf throughout, and no n_artifact_active;
+    * ``wide``: :func:`wide_assemble_tables`, 13,000 events and branches."""
+    if name == "wide":
+        tables, G, comp_of, n_comp = wide_assemble_tables(device)
+        n_combos = None
+    else:
+        engine = assemble_engine(name, device)
+        tables, G = engine._assemble_t, [len(v) for v in engine.values_s]
+        comp_of, n_comp = list(engine._comp_of), len(engine.components)
+        n_combos = engine.n_artifact_combos
+    L = L or {"tumor_normal": 1024, "relapse_l2fc": 1024, "g1001": 16, "wide": 8}.get(name, 64)
+    B = 1 if name == "b1" else 8
+    NB = tables.n_branches
+    rng = np.random.default_rng(seed)
+    bv = rng.normal(-30.0, 10.0, (L, B, NB))
+    bv[:, 1:][rng.random((L, B - 1)) < 0.5] = -np.inf
+    gates = rng.random((L, NB)) < 0.95
+    n_art = rng.integers(0, 9, L).astype(np.float32)
+    w = [rng.normal(-3.0, 1.0, (L, NB, g)) for g in G]
+    for x in w:
+        x[rng.random(x.shape) < 0.2] = -np.inf
+    d_own = [rng.normal(-20.0, 8.0, (L, 1, NB, g + 3)) for g in G]
+    for x in d_own:
+        x[rng.random(x.shape) < 0.1] = -np.inf
+    U0 = [rng.normal(-15.0, 5.0, (L, 1, NB)) for _ in range(n_comp)]
+    marginal = rng.normal(-10.0, 3.0, L)
+    marginal[rng.random(L) < 0.05] = -np.inf
+    if name == "ties":
+        bv = np.round(bv)
+        for x in d_own:
+            runs = np.round(rng.normal(-20.0, 3.0, (L, 1, NB, (x.shape[3] + 3) // 4)))
+            x[:] = np.repeat(runs, 4, axis=3)[..., : x.shape[3]]
+    elif name == "neg_inf":
+        bv[::7] = -np.inf
+        for x in w:
+            x[::5] = -np.inf
+        for x in d_own:
+            x[::3] = -np.inf
+        marginal[::11] = -np.inf
+        n_art = None
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+    head = (t(bv), t(gates, torch.bool), None if n_art is None else t(n_art),
+            n_combos or max(1, B - 1), [t(x) for x in w])
+    tail = ([t(x)[..., :g] for x, g in zip(d_own, G)], [t(u) for u in U0], comp_of,
+            t(marginal))
+    return tables, head, tail
+
+
+def assemble_mismatches(tables, tail, got_head, ref_head, got_tail, ref_tail, tol):
+    """What differs between the kernels' outputs and the plain versions' on
+    the same inputs, as ({output: problem}, {output: largest error}), at a
+    tolerance ``tol`` x max(1, |x|) on floats with -inf and NaN alike:
+
+    * the joint, marginal, posteriors and combination masses within it;
+    * the MAP event equal, or the joint within it at both events but not
+      equal (a near tie; an exact tie goes to the lower index on both
+      sides); the selections equal where the MAP event is;
+    * per sample the top-K indices equal, or the float64 density within it
+      at both but not equal (a near tie, also where the order differs);
+      the deci-PHRED
+      values within 1 of each other, and apart only where the plain value
+      lies within 1e-3, or within the tolerance's reach, of a half; af
+      within it where the MAP point is the same."""
+    problems, worst = {}, {}
+
+    def floats(name, g, r):
+        g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+        fin = np.isfinite(r)
+        if not (np.array_equal(np.isfinite(g), fin) and np.array_equal(np.isnan(g), np.isnan(r))
+                and np.array_equal(g[np.isinf(r)], r[np.isinf(r)])):
+            problems[name] = "-inf, +inf or NaN differ"
+        err = np.abs(g[fin] - r[fin]) / np.maximum(1.0, np.abs(r[fin]))
+        worst[name] = float(err.max(initial=0.0))
+        if worst[name] > tol:
+            problems[name] = f"error {worst[name]} > {tol}"
+
+    joint_g, marg_g, post_g, combo_g, best_g, wsel_g = got_head
+    joint_r, marg_r, post_r, combo_r, best_r, wsel_r = ref_head
+    for name, g, r in (("joint", joint_g, joint_r), ("marginal", marg_g, marg_r),
+                       ("posteriors", post_g, post_r), ("combo_joint", combo_g, combo_r)):
+        floats(name, g, r)
+    jr = joint_r.double().cpu().numpy()
+    bg, br = best_g.cpu().numpy(), best_r.cpu().numpy()
+    same = bg == br
+    rows = np.nonzero(~same)[0]
+    a, b = jr[rows, bg[rows]], jr[rows, br[rows]]
+    # an exact tie goes to the lower index on both sides
+    if not np.all((a != b) & (np.abs(a - b) <= tol * np.maximum(1.0, np.abs(b)))):
+        problems["best_nonartifact"] = f"{len(rows)} loci differ, not at a near tie"
+    worst["best_nonartifact_near_ties"] = len(rows)
+    for si, (g, r) in enumerate(zip(wsel_g, wsel_r)):
+        if not torch.equal(g[same], r[same]):
+            problems[f"wsel[{si}]"] = "differs where the MAP event is the same"
+
+    d_own, U0, comp_of, marginal = tail
+    af_g, dph_g, idx_g = (x.cpu().numpy() for x in got_tail)
+    af_r, dph_r, idx_r = (x.cpu().numpy() for x in ref_tail)
+    m64 = marginal.double().cpu().numpy()
+    ov = oi = 0
+    for si, own in enumerate(d_own):
+        rest = sum((u.double() for c, u in enumerate(U0) if c != comp_of[si]),
+                   torch.zeros_like(U0[0], dtype=torch.float64))
+        dens = torch.logsumexp(own.double()[:, 0] + rest[:, 0, :, None], dim=1).cpu().numpy()
+        K = tables.top_k[si]
+        nbb = tables.backbone[si].shape[0]
+        ig, ir = idx_g[:, oi:oi + K].astype(np.int64), idx_r[:, oi:oi + K].astype(np.int64)
+        vg, vr = np.take_along_axis(dens, ig, 1), np.take_along_axis(dens, ir, 1)
+        with np.errstate(invalid="ignore"):
+            tie = (vg != vr) & (np.abs(vg - vr) <= tol * np.maximum(1.0, np.abs(vr)))
+        if not (tie | (ig == ir)).all():
+            problems[f"afd_idx[{si}]"] = "top-K differs, not at a near tie"
+        worst[f"afd_idx[{si}]_near_ties"] = int((ig != ir).sum())
+        if any(len(set(row)) != K for row in ig):
+            problems[f"afd_idx[{si}]"] = "repeats an index"
+        # deci-PHRED: the plain value's distance to a half, in float64
+        cols = np.concatenate([ir, np.broadcast_to(tables.backbone[si].cpu().numpy(),
+                                                   (ir.shape[0], nbb))], axis=1)
+        with np.errstate(invalid="ignore"):
+            x = -10.0 / math.log(10.0) * (np.take_along_axis(dens, cols, 1) - m64[:, None]) * 10.0
+            near = np.abs(np.abs(x - np.floor(x)) - 0.5) <= 1e-3 + 43.5 * tol * (
+                np.maximum(1.0, np.abs(np.take_along_axis(dens, cols, 1)))
+                + np.maximum(1.0, np.abs(m64[:, None])))
+        dg = dph_g[:, ov:ov + K + nbb].astype(np.int64)
+        dr = dph_r[:, ov:ov + K + nbb].astype(np.int64)
+        diff = np.abs(dg - dr)
+        moved = np.concatenate([ig != ir, np.zeros((ir.shape[0], nbb), bool)], axis=1)
+        if not ((diff == 0) | ((diff == 1) & (near | moved))).all():
+            problems[f"densities_dphred[{si}]"] = f"differs by up to {int(diff.max())}"
+        worst[f"densities_dphred[{si}]_off_by_one"] = int((diff == 1).sum())
+        top = ig[:, 0] == ir[:, 0]
+        e = np.abs(af_g[top, si].astype(np.float64) - af_r[top, si])
+        worst[f"af[{si}]"] = float(e.max(initial=0.0))
+        if worst[f"af[{si}]"] > tol:
+            problems[f"af[{si}]"] = f"error {worst[f'af[{si}]']} > {tol}"
+        ov, oi = ov + K + nbb, oi + K
+    return problems, worst
+
+
 def pairhmm_items(n=21, seed=3):
     """Ragged pair-HMM work items (alleles of 40-300 bases, reads of 1-100
     bases cut from them with up to 3 edits, flat qualities 20/30/40): the

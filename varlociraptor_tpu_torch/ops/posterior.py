@@ -22,7 +22,8 @@ The host setup (per-sample active subgrids, spectra, support classes, the
 unique (nu, kappa) classes of each contaminated plane) is a numpy copy of the
 reference's and yields the same tables bit for bit (``convert.py``).  The
 device code is plain torch on ``self.device``; the contaminated-plane and
-grid likelihoods go through the K1 kernel (``ops.ll_classes``).
+grid likelihoods go through the K1 kernel (``ops.ll_classes``), and the
+event and MAP / AFD pass through ``ops.assemble``.
 
 Outputs of :meth:`PosteriorEngine.run` / :meth:`run_wire` are host numpy
 arrays with the keys and dtypes of the reference's ``_unpack_host``.
@@ -42,6 +43,7 @@ from ..ops.grid import AFGrid
 from .. import tracing
 from ..device import resolve_device
 from ..evidence.observation import F
+from .assemble import AssembleTables, assemble_head, assemble_tail
 from .lfc_star import lfc_star
 from .likelihood import (
     NEG_INF,
@@ -55,7 +57,6 @@ from .ll_classes import ll_classes_folded
 from .lse_contract import class_table, lse_contract
 
 LN_32 = math.log(3.2)  # Kass-Raftery "positive" threshold
-PROB_05 = math.log(0.5)
 
 # AFD points shipped to the host per (locus, sample): the K densest subgrid
 # points plus a static strided backbone across the whole subgrid.
@@ -221,12 +222,13 @@ class _Pending:
     non-blocking copies, and the CUDA event recorded after those copies on
     the dispatching stream (None on the CPU).  Any thread may finish it."""
 
-    def __init__(self, host, event, L, lfc_marks):
+    def __init__(self, host, event, L, marks):
         self.host = host
         self.event = event
         self.L = L
-        # traced: (start, end) stream marks of each l2fc pass of the run
-        self.lfc_marks = lfc_marks
+        # traced: (counter, start, end) stream marks of the run's l2fc and
+        # assemble passes
+        self.marks = marks
 
 
 class PosteriorEngine:
@@ -474,6 +476,11 @@ class PosteriorEngine:
                 for si, by, frac in self.pairs
             }
         self.root_samples = [si for si in range(S) if self.parent[si] is None]
+        # each sample's component, an index into self.components
+        self._comp_of = [
+            next(c for c, comp in enumerate(self.components) if si in comp)
+            for si in range(S)
+        ]
         self.singletons = [c[0] for c in self.components if len(c) == 1]
 
     def state(self) -> dict:
@@ -555,9 +562,10 @@ class PosteriorEngine:
         # launch accounting of chip_smoke.py
         self.loop_steps = 0
         # the l2fc integrals' [cells, bytes] of the current pass, and the
-        # traced passes' stream marks not yet handed to a pending fetch
+        # traced passes' (counter, start, end) stream marks not yet handed
+        # to a pending fetch
         self._lfc_work = [0, 0]
-        self._lfc_marks = []
+        self._stream_marks = []
 
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
@@ -574,20 +582,11 @@ class PosteriorEngine:
         }
         self._excl0 = t(self.spectrum_excludes_zero)
         self._z0 = t(self.branch_has_zero_point)
-        self._branch_event_t = t(self.branch_event.astype(np.int64))
-        self._nonart_t = t(
-            np.array([not a for a in self.event_is_artifact], dtype=bool)
+        self._assemble_t = AssembleTables(
+            self.event_branch_idx, self.event_is_artifact, self.branch_event,
+            self._values_t, [self._afd_backbone(si) for si in range(S)],
+            AFD_TOP_K, dev,
         )
-        self._event_idx_t = [
-            t(np.asarray(ix, dtype=np.int64)) for ix in self.event_branch_idx
-        ]
-        art = [
-            bi
-            for ei in range(self.n_events)
-            if self.event_is_artifact[ei]
-            for bi in self.event_branch_idx[ei]
-        ]
-        self._artifact_idx_t = t(np.asarray(art, dtype=np.int64)) if art else None
         self._pair_t = {
             si: (t(nu, torch.float32), t(kap, torch.float32),
                  t(inv.astype(np.int64)))
@@ -595,9 +594,6 @@ class PosteriorEngine:
         }
         self._support_t = [
             class_table(cls, masks, dev) for cls, masks in self.support_classes
-        ]
-        self._backbone_t = [
-            t(self._afd_backbone(si).astype(np.int64)) for si in range(S)
         ]
         # l2fc masks as log masks (0 / -inf): per branch, and per sample
         # pair stacked over branches [NB, Ga, Gb] for --full-prior
@@ -1004,7 +1000,9 @@ class PosteriorEngine:
             self._lfc_work = [0, 0]
             T, Z = self._lfc_branches(T, Z, U, Uzero, loglik, pair_logliks, w_list)
             if traced:
-                self._lfc_marks.append((start, _stream_mark(T.device)))
+                self._stream_marks.append(
+                    ("engine.lfc_stream_ns", start, _stream_mark(T.device))
+                )
                 tracing.count("engine.lfc_steps", self.loop_steps - steps0)
                 tracing.count("engine.lfc_cells", self._lfc_work[0])
                 tracing.count("engine.lfc_bytes", self._lfc_work[1])
@@ -1395,143 +1393,51 @@ class PosteriorEngine:
         self, branch_val, loglik, pair_logliks, w_list, branch_gates,
         n_artifact_active=None,
     ):
-        L, B = branch_val.shape[0], branch_val.shape[1]
-        S = self.n_samples
-        NB = self.n_branches
-        dev = branch_val.device
-        n_artifact_combos = self.n_artifact_combos or max(1, B - 1)
-        # the artifact event splits a 0.5 prior uniformly over the bias
-        # combinations considered at each locus (generic.rs:437-441)
-        if n_artifact_active is not None:
-            ln_n_art = torch.log(torch.clamp(n_artifact_active, min=1.0))  # [L]
-        else:
-            ln_n_art = torch.full((L,), math.log(n_artifact_combos), device=dev)
-        event_vals = []
-        for ei in range(self.n_events):
-            if not self.event_branch_idx[ei]:
-                # event compiled to False (e.g. impossible on this contig)
-                event_vals.append(torch.full((L,), NEG_INF, device=dev))
-                continue
-            bv = branch_val[:, :, self._event_idx_t[ei]]  # [L,B,nb_e]
-            ev_b = _lse(bv, dim=-1)  # [L,B]
-            if self.event_is_artifact[ei]:
-                if B == 1:  # no artifact combo slot active in this batch
-                    val = torch.full((L,), NEG_INF, device=dev)
-                else:
-                    bias_prior = PROB_05 - ln_n_art  # [L]
-                    val = bias_prior + _lse(ev_b[:, 1:], dim=-1)
-            else:
-                val = PROB_05 + ev_b[:, 0]
-            event_vals.append(val)
-        joint = torch.stack(event_vals, dim=-1)  # [L,E]
-        marginal = _lse(joint, dim=-1)
-        posteriors = joint - marginal[:, None]
-
-        # per-combo artifact mass (MAP artifact-combination reporting)
-        if self._artifact_idx_t is not None:
-            combo_joint = _lse(branch_val[:, :, self._artifact_idx_t], dim=-1)
-            # slot 0 (no-artifact) never carries artifact-event mass
-            combo_joint = combo_joint.clone()
-            combo_joint[:, 0] = NEG_INF
-        else:
-            combo_joint = torch.full((L, B), NEG_INF, device=dev)
-
-        # per-sample marginal densities over the grid (MAP / AFD) for the
-        # per-locus MAP non-artifact event, at the no-artifact bias slot
-        # (calling.rs:844-937)
-        masked_joint = torch.where(self._nonart_t[None, :], joint, NEG_INF)
-        best_ev = torch.argmax(masked_joint, dim=-1)  # [L]
-        sel = (
-            self._branch_event_t[None, :] == best_ev[:, None]
-        ) & branch_gates  # [L,NB]
-
-        wsel_list = []
-        for si in range(S):
-            wmask = torch.where(w_list[si] > NEG_INF / 2, 0.0, NEG_INF)
-            wsel_list.append(wmask + torch.where(sel[:, :, None], 0.0, NEG_INF))
-        loglik0 = {si: t[:, :1] for si, t in loglik.items()}
-        pair0 = {si: t[:, :1] for si, t in pair_logliks.items()}
-
-        U0 = {}
-        keep_units = {}
-        for comp in self.components:
-            key = ("c",) + tuple(comp)
-            U0[key] = self._component_reduce(comp, loglik0, pair0, wsel_list)
-            for si in comp:
-                keep_units[si] = (key, comp)
-
-        # MAP AF with log-parabola off-grid refinement; AFD as
-        # marginal-normalized deci-PHRED int16 (32767 = -inf / not shipped)
-        af_cols = []
-        dphred_blocks = []
-        afd_idx_blocks = []
-        for si in range(S):
-            key, comp = keep_units[si]
-            d_own = self._component_reduce(
-                comp, loglik0, pair0, wsel_list, keep=si
-            )  # [L,1,NB,Gi]
-            rest = torch.zeros((L, 1, NB), device=dev)
-            for k2, val in U0.items():
-                if k2 != key:
-                    rest = rest + val
-            d = d_own + rest[..., None]  # [L,1,NB,Gi]
-            dens = _lse(d[:, 0], dim=1)  # [L,Gi]
-
-            vals = self._values_t[si]
-            Gi = dens.shape[-1]
-            gi = torch.argmax(dens, dim=-1)  # [L]
-            if Gi >= 3:
-                gi_c = torch.clamp(gi, 1, Gi - 2)
-                dm = torch.gather(dens, -1, (gi_c - 1)[:, None])[:, 0]
-                d0 = torch.gather(dens, -1, gi_c[:, None])[:, 0]
-                dp = torch.gather(dens, -1, (gi_c + 1)[:, None])[:, 0]
-                g_at = vals[gi_c]
-                left = g_at - vals[gi_c - 1]
-                right = vals[gi_c + 1] - g_at
-                # unequal-spacing parabola vertex through the three points
-                num = (dm - d0) * right * right - (dp - d0) * left * left
-                den = (dm - d0) * right + (dp - d0) * left
-                off = torch.where(den < -1e-12, 0.5 * num / den, 0.0)
-                af_ref = torch.minimum(
-                    torch.maximum(g_at + off, vals[gi_c - 1]), vals[gi_c + 1]
-                )
-                ok = (
-                    (gi >= 1)
-                    & (gi <= Gi - 2)
-                    & torch.isfinite(dm)
-                    & torch.isfinite(dp)
-                    & (torch.abs(off) <= torch.maximum(left, right))
-                    & (den < -1e-12)
-                )
-                af_cols.append(torch.where(ok, af_ref, vals[gi]))
-            else:
-                af_cols.append(vals[gi])
-
-            rel = dens - marginal[:, None]
-            dphred = -10.0 / math.log(10.0) * rel * 10.0
-            dphred_i16 = torch.where(
-                torch.isfinite(rel),
-                torch.clamp(torch.round(dphred), -32767.0, 32766.0),
-                32767.0,  # sentinel: dropped by the AFD writer
-            ).to(torch.int16)
-            # top-K (ties to the lower index, as lax.top_k) + static backbone
-            K = min(AFD_TOP_K, Gi)
-            top_idx = torch.sort(dens, dim=-1, descending=True, stable=True)[1][
-                :, :K
+        """The events, the posteriors and the per-sample MAP / AFD of a batch
+        (``ops/assemble.py``: on the card two kernel launches, the head and
+        the tail, around the contractions of the MAP event's densities),
+        in the span ``engine.assemble``.  Traced, it marks the stream at
+        its start and end: the marks go with the run's pending fetch, whose
+        :meth:`fetch_run` counts the stream time between them as
+        ``engine.assemble_stream_ns``."""
+        with tracing.span("engine.assemble"):
+            dev = branch_val.device
+            traced = tracing.enabled()
+            if traced:
+                start = _stream_mark(dev)
+            B = branch_val.shape[1]
+            joint, marginal, posteriors, combo_joint, best_ev, wsel_list = assemble_head(
+                branch_val, branch_gates.contiguous(),
+                None if n_artifact_active is None else n_artifact_active.contiguous(),
+                self.n_artifact_combos or max(1, B - 1), w_list, self._assemble_t,
+            )
+            loglik0 = {si: t[:, :1] for si, t in loglik.items()}
+            pair0 = {si: t[:, :1] for si, t in pair_logliks.items()}
+            U0 = [
+                self._component_reduce(comp, loglik0, pair0, wsel_list)
+                for comp in self.components
             ]
-            bb = self._backbone_t[si][None, :].expand(L, -1)
-            idx_all = torch.cat([top_idx, bb], dim=-1)
-            dphred_blocks.append(torch.gather(dphred_i16, -1, idx_all))
-            afd_idx_blocks.append(top_idx.to(torch.int16))
-        af = torch.stack(af_cols, dim=1)  # [L,S]
-
+            d_own = [
+                self._component_reduce(
+                    self.components[self._comp_of[si]], loglik0, pair0, wsel_list,
+                    keep=si,
+                )  # [L,1,NB,Gi]
+                for si in range(self.n_samples)
+            ]
+            af, densities_dphred, afd_idx = assemble_tail(
+                d_own, U0, self._comp_of, marginal, self._assemble_t
+            )
+            if traced:
+                self._stream_marks.append(
+                    ("engine.assemble_stream_ns", start, _stream_mark(dev))
+                )
         return {
             "joint": joint,
             "marginal": marginal,
             "posteriors": posteriors,
-            "densities_dphred": torch.cat(dphred_blocks, dim=1),  # [L, sum Ki]
-            "afd_idx": torch.cat(afd_idx_blocks, dim=1),  # [L, sum Ktop_i]
-            "af": af,
+            "densities_dphred": densities_dphred,  # [L, sum Ki]
+            "afd_idx": afd_idx,  # [L, sum Ktop_i]
+            "af": af,  # [L,S]
             "combo_joint": combo_joint,
             "best_nonartifact": best_ev,
         }
@@ -1594,8 +1500,8 @@ class PosteriorEngine:
     def _start_fetch(self, out, mask, L):
         """Queue the device->host copies of the reference's host outputs
         (before the AFD expansion: map_slot from combo_joint, n_obs from the
-        mask); returns a :class:`_Pending`, which takes the l2fc stream marks
-        of the run."""
+        mask); returns a :class:`_Pending`, which takes the stream marks of
+        the run."""
         dev_out = {
             "posteriors": out["posteriors"],
             "marginal": out["marginal"],
@@ -1606,7 +1512,7 @@ class PosteriorEngine:
             "map_slot": torch.argmax(out["combo_joint"], dim=1).to(torch.int64),
             "n_obs": torch.clamp(mask.sum(dim=-1), max=32767).to(torch.int64),
         }
-        marks, self._lfc_marks = self._lfc_marks, []
+        marks, self._stream_marks = self._stream_marks, []
         if self.device.type != "cuda":
             return _Pending(dev_out, None, L, marks)
         stream = torch.cuda.current_stream(self.device)
@@ -1623,8 +1529,8 @@ class PosteriorEngine:
         """Wait for a pending result and unpack it into the host dict."""
         if pending.event is not None:
             pending.event.synchronize()
-        for start, end in pending.lfc_marks:
-            tracing.count("engine.lfc_stream_ns", _stream_ns(start, end))
+        for name, start, end in pending.marks:
+            tracing.count(name, _stream_ns(start, end))
         h = {k: v.numpy() for k, v in pending.host.items()}
         host = {
             "posteriors": h["posteriors"],

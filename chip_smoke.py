@@ -129,7 +129,7 @@ and in every Python process it starts through
                        its first 2,000 loci re-called with ``--device cpu``
                        and compared; and the host seconds of the
                        --full-prior prior tables (tumor-normal, and the
-                       mendelian trio at 0.01: 101^3 cells).
+                       benchmark's de novo trio at 0.01: 101^3 cells).
   (g) preprocess_threads
                        the tumors of phases (d) and (e) again through
                        ``preprocess variants --threads N --device cuda``:
@@ -1477,10 +1477,10 @@ def mode_run(name, engine, n_loci, table):
     from varlociraptor_tpu_torch.ops import lse_contract as lc
 
     inputs = engine_inputs(engine, n_loci=n_loci, depth=64, seed=0)
-    pj = None
-    if table is not None:
-        pj = np.ascontiguousarray(np.broadcast_to(table, (n_loci,) + table.shape))
-    engine.run(*inputs, ln_prior_joint=pj)  # warm-up
+    pj = idx = None
+    if table is not None:  # one table, every locus's row
+        pj, idx = table[None], np.zeros(n_loci, np.int64)
+    engine.run(*inputs, ln_prior_joint=pj, ln_prior_idx=idx)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1.ll_classes.launches = 0  # main path starts here
@@ -1495,7 +1495,7 @@ def mode_run(name, engine, n_loci, table):
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
-            out = engine.run(*inputs, ln_prior_joint=pj)  # outputs on the host
+            out = engine.run(*inputs, ln_prior_joint=pj, ln_prior_idx=idx)  # outputs on the host
             end.record()
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
@@ -1526,7 +1526,8 @@ def mode_run(name, engine, n_loci, table):
     sub = [np.asarray(x)[:MODES_PLAIN] for x in inputs]
     t0 = time.perf_counter()
     with plain_k1():
-        plain = engine.run(*sub, ln_prior_joint=None if pj is None else pj[:MODES_PLAIN])
+        plain = engine.run(*sub, ln_prior_joint=pj,
+                           ln_prior_idx=None if idx is None else idx[:MODES_PLAIN])
     plain_s = time.perf_counter() - t0
     head = {k: v[:MODES_PLAIN] for k, v in out.items()}
     problems, info = compare_outputs(plain, head, grid_values=engine.grid.values)
@@ -1554,19 +1555,16 @@ def mode_run(name, engine, n_loci, table):
 
 
 def prior_table_seconds():
-    """Host seconds of the --full-prior table of the mendelian trio with
-    every sample at resolution 0.01 (101^3 cells, prior.compute once per
-    cell)."""
-    import copy
-
+    """Host seconds of the --full-prior table of the de novo trio
+    (``bench_utils.TRIO_DENOVO_SCENARIO``: Mendelian inheritance, somatic
+    rates, resolution 0.01: 101^3 cells), computed over the whole grid at
+    once (``ops/prior_table.py``)."""
     import numpy as np
 
-    from varlociraptor_tpu_torch.bench_utils import TRIO_SCENARIO, full_prior_table, scenario_engine
+    from varlociraptor_tpu_torch.bench_utils import (
+        TRIO_DENOVO_SCENARIO, full_prior_table, scenario_engine)
 
-    doc = copy.deepcopy(TRIO_SCENARIO)
-    for sample in doc["samples"].values():
-        sample["resolution"] = 0.01
-    scenario, trio = scenario_engine(doc, 0.01, device="cuda")
+    scenario, trio = scenario_engine(TRIO_DENOVO_SCENARIO, 0.01, device="cuda")
     table, secs = full_prior_table(scenario, trio)
     if not np.isfinite(table).any():
         raise PhaseError("engine_modes: the trio prior table has no finite cell")

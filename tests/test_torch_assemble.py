@@ -91,7 +91,8 @@ CASES = ("tumor_normal", "l2fc", "trio", "single", "full_prior", "b1", "false_ev
 def test_engine_matches_jax(name):
     engine, jax_engine, inputs, pj = _case(name)
     h0, t0 = asm.assemble_head.launches, asm.assemble_tail.launches
-    got = engine.run(*inputs, ln_prior_joint=pj)
+    got = engine.run(*inputs, ln_prior_joint=pj,
+                     ln_prior_idx=None if pj is None else np.arange(len(pj)))
     # the CPU takes the plain versions
     assert (asm.assemble_head.launches, asm.assemble_tail.launches) == (h0, t0)
     want = {k: np.asarray(v) for k, v in jax_engine.run(*inputs, ln_prior_joint=pj).items()}

@@ -24,7 +24,9 @@ NaN alike, the MAP event and the top-K indices equal but at near ties
 near a half; the engine on the card against the engine on
 the CPU at the engine tolerances of varlociraptor_tpu_torch/compare.py, in
 tumor-normal and in chip_smoke.py phase (f)'s modes (--full-prior, l2fc,
-cyclic contamination); the legacy per-WorkItem caller's VCF on the card
+cyclic contamination), and in the de novo trio under
+--full-prior (table rows by locus, the trio loop over locus chunks); the
+legacy per-WorkItem caller's VCF on the card
 against the CPU's (compare_vcf_text); the CNV Viterbi's state path on the
 card equal to the CPU's; the all-kinds world (bench_utils.KINDS_WORLD)
 preprocessed on the card against the CPU kind by kind, each kind's first K2 /
@@ -62,6 +64,8 @@ from varlociraptor_tpu_torch.bench_utils import (
     lfc_star_args,
     lse_contract_args,
     rho_engine,
+    TRIO_DENOVO_SCENARIO,
+    scenario_engine,
     tumor_normal_engine,
 )
 from varlociraptor_tpu_torch.compare import compare_outputs
@@ -438,18 +442,39 @@ def test_engine_modes_on_the_card_match_the_cpu(card, name, k1_per_call,
     cpu, _ = _mode_engine(name, "cpu")
     L = 24
     inputs = engine_inputs(cpu, n_loci=L, depth=32, seed=6)
-    pj = None if table is None else np.ascontiguousarray(
-        np.broadcast_to(table, (L,) + table.shape))
+    pj = None if table is None else table[None]
+    idx = None if table is None else np.zeros(L, np.int64)
     n0, c0, s0 = k1.ll_classes.launches, lc.lse_contract.launches, ls.lfc_star.launches
     h0, t0 = asm.assemble_head.launches, asm.assemble_tail.launches
-    got = gpu.run(*inputs, ln_prior_joint=pj)
+    got = gpu.run(*inputs, ln_prior_joint=pj, ln_prior_idx=idx)
     # the event and MAP / AFD pass: one launch of each of its kernels
     assert (asm.assemble_head.launches, asm.assemble_tail.launches) == (h0 + 1, t0 + 1)
     assert k1.ll_classes.launches == n0 + k1_per_call
     assert lc.lse_contract.launches == c0 + contractions_per_call
     # the star l2fc integral: one launch a branch of the l2fc scenario
     assert ls.lfc_star.launches == s0 + (len(gpu._lfc_t) if name == "l2fc" else 0)
-    ref = cpu.run(*inputs, ln_prior_joint=pj)
+    ref = cpu.run(*inputs, ln_prior_joint=pj, ln_prior_idx=idx)
+    problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
+    assert not problems, problems[:5]
+
+
+def test_trio_full_prior_on_the_card_matches_the_cpu(card, monkeypatch):
+    """The de novo trio (``bench_utils.TRIO_DENOVO_SCENARIO``: the
+    Mendelian joint prior, the trio loop of ``_full_prior_T``) at resolution
+    0.05, its table on the card and each locus's row by index, the loop cut
+    into chunks of a few loci: the CPU's outputs."""
+    from varlociraptor_tpu_torch.ops import posterior
+
+    doc = TRIO_DENOVO_SCENARIO
+    scenario, gpu = scenario_engine(doc, 0.05, device=card, all_uniform_prior=False)
+    _, cpu = scenario_engine(doc, 0.05, device="cpu", all_uniform_prior=False)
+    table = full_prior_table(scenario, cpu)[0][None]
+    L = 16
+    inputs = engine_inputs(cpu, n_loci=L, depth=32, seed=7)
+    idx = np.zeros(L, np.int64)
+    monkeypatch.setattr(posterior, "_FULL_PRIOR_SLAB_BYTES", 5 * 2**20)
+    got = gpu.run(*inputs, ln_prior_joint=gpu.upload_prior_tables(table), ln_prior_idx=idx)
+    ref = cpu.run(*inputs, ln_prior_joint=table, ln_prior_idx=idx)
     problems, _ = compare_outputs(ref, got, grid_values=cpu.grid.values)
     assert not problems, problems[:5]
 

@@ -250,7 +250,9 @@ def test_engine_mode_matches_jax(case, build):
         te = CASES[case][0](_mods("torch"))
     else:
         te = PosteriorEngine.from_state(engine_state_from_jax(je), device="cpu")
-    got = te.run(*inputs, ln_prior_joint=pj)
+    # the port takes each locus's table as a row of the tables, by index
+    got = te.run(*inputs, ln_prior_joint=pj,
+                 ln_prior_idx=None if pj is None else np.arange(len(pj)))
     assert set(ref) == set(got)
     for k, v in got.items():
         assert not np.isnan(np.asarray(v, dtype=np.float64)).any(), k

@@ -111,7 +111,8 @@ def test_run_matches_jax(resolution, n_loci, depth):
 
 def _wire_arrays(engine, L=48, D=16, Bc=3, seed=3, full_prior=False):
     """The named sections of a run_wire input buffer, its dimensions
-    (Np, L, D, Bc) and pj_shape: flat observations of random depth per
+    (Np, L, D, Bc) and the --full-prior tables (three, each locus's row in
+    the ``pj`` section) or None: flat observations of random depth per
     (locus, sample) with synth_observation_files' feature distributions."""
     rng = np.random.default_rng(seed)
     S = engine.n_samples
@@ -147,27 +148,33 @@ def _wire_arrays(engine, L=48, D=16, Bc=3, seed=3, full_prior=False):
         "hal": (rng.random(L) < 0.2).astype(np.uint8),
         "n_art": rng.integers(1, 9, L).astype(np.float32),
     }
-    pj_shape = None
+    tables = None
     if full_prior:
-        pj_shape = tuple(len(v) for v in engine.values_s)
-        arrays["pj"] = np.log(rng.uniform(0.05, 1.0, (L,) + pj_shape))
-    return arrays, (Np, L, D, Bc), pj_shape
+        shape = tuple(len(v) for v in engine.values_s)
+        tables = np.log(rng.uniform(0.05, 1.0, (3,) + shape)).astype(np.float32)
+        arrays["pj"] = rng.integers(0, 3, L).astype(np.int32)
+    return arrays, (Np, L, D, Bc), tables
 
 
 def _wire_inputs(engine, **kw):
     """A run_wire input buffer (the port's ``pack_wire``, the JAX package's
-    ``pack_in_wire``) and its dimensions."""
-    arrays, dims, pj_shape = _wire_arrays(engine, **kw)
+    ``pack_in_wire``, whose ``pj`` section carries each locus's table
+    itself), its dimensions and the --full-prior tables."""
+    arrays, dims, tables = _wire_arrays(engine, **kw)
     if isinstance(engine, PosteriorEngine):
-        return engine.pack_wire(arrays, *dims, pj_shape), dims
-    return engine.pack_in_wire(engine._in_wire_spec(*dims, pj_shape), arrays), dims
+        return engine.pack_wire(arrays, *dims, tables is not None), dims, tables
+    pj_shape = None
+    if tables is not None:
+        arrays = dict(arrays, pj=tables[arrays["pj"]])
+        pj_shape = tables.shape[1:]
+    return engine.pack_in_wire(engine._in_wire_spec(*dims, pj_shape), arrays), dims, tables
 
 
 def test_run_wire_matches_jax():
     je, te = _engines(0.01)
-    buf, dims = _wire_inputs(je)
+    buf, dims, _ = _wire_inputs(je)
     # both packages lay the buffer out identically
-    tbuf, _ = _wire_inputs(te)
+    tbuf, _, _ = _wire_inputs(te)
     assert np.array_equal(buf, tbuf)
     ref = je.run_wire(buf, *dims)
     got = te.run_wire(buf, *dims)
@@ -181,18 +188,20 @@ def test_run_wire_matches_jax():
 
 
 def test_run_wire_full_prior_matches_jax():
-    """The --full-prior joint prior in the wire's ``pj`` section: both
-    packages pack the same bytes and unpack the same outputs."""
+    """The --full-prior joint prior: the port's wire carries each locus's
+    row of tables that lie on the device, the JAX package's carries each
+    locus's table itself (the index expanded); both give the same
+    outputs."""
     je, te = _engines(0.1)
-    buf, dims = _wire_inputs(je, full_prior=True)
-    tbuf, _ = _wire_inputs(te, full_prior=True)
-    assert np.array_equal(buf, tbuf)
+    buf, dims, tables = _wire_inputs(je, full_prior=True)
+    tbuf, _, ttables = _wire_inputs(te, full_prior=True)
+    assert np.array_equal(tables, ttables)
     pj_shape = tuple(len(v) for v in te.values_s)
     ref = je.run_wire(buf, *dims, pj_shape=pj_shape)
-    got = te.run_wire(buf, *dims, pj_shape=pj_shape)
+    got = te.run_wire(tbuf, *dims, prior_tables=te.upload_prior_tables(tables))
     _check(ref, got, te)
     # the joint prior moves the posteriors: the section is read
-    plain = te.run_wire(*_wire_inputs(te)[:1], *dims)
+    plain = te.run_wire(_wire_inputs(te)[0], *dims)
     assert not np.allclose(plain["posteriors"], got["posteriors"])
 
 
@@ -206,7 +215,7 @@ def test_run_wire_equals_run_compact_on_its_panels(full_prior):
     from varlociraptor_tpu_torch.evidence.observation import HOMOPOLYMER_NONE
 
     _, te = tbu.tumor_normal_engine(resolution=0.1, device="cpu")
-    arrays, (Np, L, D, Bc), pj_shape = _wire_arrays(te, full_prior=full_prior)
+    arrays, (Np, L, D, Bc), tables = _wire_arrays(te, full_prior=full_prior)
     counts = np.minimum(arrays["counts"].astype(np.int64), D)
     start = np.cumsum(counts).reshape(counts.shape) - counts
     slot = np.arange(D)
@@ -216,12 +225,13 @@ def test_run_wire_equals_run_compact_on_its_panels(full_prior):
     u8 = np.zeros((L, te.n_samples, D, N_CU), np.uint8)
     hil = np.full((L, te.n_samples, D), HOMOPOLYMER_NONE, np.int8)
     f16[mask], u8[mask], hil[mask] = (arrays[k][src] for k in ("f16f", "u8f", "hilf"))
-    got = te.run_wire(te.pack_wire(arrays, Np, L, D, Bc, pj_shape), Np, L, D, Bc,
-                      pj_shape=pj_shape)
+    got = te.run_wire(te.pack_wire(arrays, Np, L, D, Bc, full_prior), Np, L, D, Bc,
+                      prior_tables=tables)
     ref = te.run_compact(
         f16, u8, hil, mask, arrays["sm"], arrays["sa"] != 0, arrays["bg"] != 0,
         arrays["pa"], arrays["fr"], arrays["hal"] != 0,
-        ln_prior_joint=arrays.get("pj"), n_artifact_active=arrays["n_art"])
+        ln_prior_joint=tables, ln_prior_idx=arrays.get("pj"),
+        n_artifact_active=arrays["n_art"])
     assert got.keys() == ref.keys()
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

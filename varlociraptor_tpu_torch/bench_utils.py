@@ -69,6 +69,24 @@ TRIO_SCENARIO = {
     },
 }
 
+# a child and both parents, each of ploidy 2 with a somatic rate and the
+# default resolution 0.01 (101^3 joint cells), the child mendelian from both:
+# de novo, mosaic de novo and inherited events under --full-prior
+TRIO_DENOVO_SCENARIO = {
+    "species": {"heterozygosity": 0.001, "germline-mutation-rate": 0.001},
+    "samples": {
+        "mother": {"ploidy": 2, "somatic-effective-mutation-rate": 1e-06},
+        "father": {"ploidy": 2, "somatic-effective-mutation-rate": 1e-06},
+        "child": {"ploidy": 2, "somatic-effective-mutation-rate": 1e-06,
+                  "inheritance": {"mendelian": {"from": ["mother", "father"]}}},
+    },
+    "events": {
+        "denovo": "mother:0.0 & father:0.0 & child:0.5",
+        "denovo_mosaic": "mother:0.0 & father:0.0 & child:]0.0,0.5[",
+        "inherited": "child:]0.0,1.0] & (mother:0.5 | mother:1.0 | father:0.5 | father:1.0)",
+    },
+}
+
 # tumor / relapse / normal with tumor and relapse contaminated by normal (the
 # shape of tests/test_scope_lifts.py's CONTAM_TRIO_SCENARIO) at per-sample
 # resolution 0.01, with disjoint somatic events split by l2fc(relapse, tumor):
@@ -212,8 +230,7 @@ def full_prior_table(scenario, engine):
         device=engine.device,
     )
     t0 = time.perf_counter()
-    table = caller._full_prior_table(
-        "chr1",
+    _, table = caller._full_prior_table(
         VariantInfo(kind="snv", chrom="chr1", pos=0, ref_allele="A",
                     alt_allele="T"),
         caller._prior_for("chr1", "snv"),

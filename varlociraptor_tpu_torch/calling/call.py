@@ -47,6 +47,7 @@ from ..ops.biases import (
 )
 from ..ops.grid import AFGrid
 from ..ops.prior import build_prior
+from ..ops.prior_table import joint_prior_table
 from ..utils.logprob import np_ln_sum_exp, np_log_from_phred, np_phred_from_log
 
 from .. import tracing
@@ -148,6 +149,10 @@ class GenericCaller:
         self._engines = {}
         self._events_cache = {}
         self._prior_cache = {}
+        # --full-prior: host tables by what they depend on, and per engine
+        # the rows uploaded to its device (_joint_prior_row)
+        self._full_prior_tables = {}
+        self._prior_rows = {}
 
         self.sample_configs = []
         for name in scenario.sample_names:
@@ -259,25 +264,26 @@ class GenericCaller:
             hints=hints,
         )
 
-    def _full_prior_table(self, contig, variant, prior, value_lists):
-        """Joint prior table for --full-prior on the engine's per-sample
-        active subgrids (the axes the engine integrates), cached per
-        (contig, vartype, per-variant overrides): the table is
-        locus-independent unless the candidate carries HETEROZYGOSITY /
-        SOMATIC_EFFECTIVE_MUTATION_RATE INFO overrides (prior.rs:251-271)."""
+    def _full_prior_table(self, variant, prior, value_lists):
+        """(key, table): the joint prior for --full-prior on the engine's
+        per-sample active subgrids (the axes the engine integrates), float32,
+        computed over the whole grid at once (``ops/prior_table.py``) in the
+        span ``call.prior_table`` (counter ``prior.table_cells``).  Cached by
+        what it depends on: the samples' ploidies and universes on the
+        contig, the variant type, the candidate's HETEROZYGOSITY /
+        SOMATIC_EFFECTIVE_MUTATION_RATE INFO overrides (prior.rs:251-271,
+        already set on ``prior``) and the grid."""
         key = (
-            contig,
+            tuple(prior.ploidies),
+            repr(prior.universes),
             variant.kind,
             variant.heterozygosity,
             variant.somatic_effective_mutation_rate,
-            len(value_lists),
+            tuple(np.asarray(v, dtype=np.float64).tobytes() for v in value_lists),
         )
-        cache = getattr(self, "_full_prior_tables", None)
-        if cache is None:
-            cache = self._full_prior_tables = {}
-        hit = cache.get(key)
+        hit = self._full_prior_tables.get(key)
         if hit is not None:
-            return hit
+            return key, hit
         shapes = tuple(len(v) for v in value_lists)
         size = int(np.prod(shapes))
         if size > 2_000_000:
@@ -288,18 +294,31 @@ class GenericCaller:
                 f"{len(value_lists)} samples; coarsen per-sample "
                 "`resolution:` in the scenario"
             )
-        vals = [np.asarray(v, dtype=np.float64) for v in value_lists]
-        prior.is_absent_only = False
-        try:
-            table = np.zeros(shapes, dtype=np.float32)
-            for idx in np.ndindex(*shapes):
-                table[idx] = prior.compute(
-                    [vals[s][idx[s]] for s in range(len(vals))]
-                )
-        finally:
-            prior.is_absent_only = True
-        cache[key] = table
-        return table
+        with tracing.span("call.prior_table"):
+            table = joint_prior_table(prior, value_lists).astype(np.float32)
+            tracing.count("prior.table_cells", table.size)
+        self._full_prior_tables[key] = table
+        return key, table
+
+    def _joint_prior_row(self, engine, variant, prior):
+        """--full-prior: the row of ``variant``'s joint prior table among
+        the tables of ``engine`` (``prior`` carries its overrides)."""
+        key, table = self._full_prior_table(variant, prior, engine.values_s)
+        rows = self._prior_rows.setdefault(id(engine), {"rows": {}, "device": None})
+        row = rows["rows"].get(key)
+        if row is None:
+            row = rows["rows"][key] = len(rows["rows"])
+            rows["device"] = None
+        return row
+
+    def _joint_prior_tables(self, engine):
+        """The tables of ``engine``'s rows on its device [K, G_0, ...,
+        G_{S-1}]: uploaded once, and again only when a new key adds a row."""
+        rows = self._prior_rows[id(engine)]
+        if rows["device"] is None:
+            host = [self._full_prior_tables[k] for k in rows["rows"]]
+            rows["device"] = engine.upload_prior_tables(np.stack(host))
+        return rows["device"]
 
     def call_batch(self, items: list[WorkItem], contig: str):
         """Evaluate a batch of work items (same contig) through
@@ -349,11 +368,7 @@ class GenericCaller:
                 branch_gates[li, bi] = br.passes_snv(it.snv)
 
         ln_prior_absent = np.zeros(L, dtype=np.float32)
-        ln_prior_joint = None
-        if self.options.full_prior:
-            value_lists = [engine.values_s[si] for si in range(S)]
-            shape = (L,) + tuple(len(v) for v in value_lists)
-            ln_prior_joint = np.zeros(shape, dtype=np.float32)
+        prior_rows = np.zeros(L, dtype=np.int32) if self.options.full_prior else None
         for li, it in enumerate(items):
             prior = self._prior_for(contig, it.variant.kind)
             # per-variant INFO overrides (prior.rs:251-271); reset first —
@@ -364,10 +379,11 @@ class GenericCaller:
                 it.variant.somatic_effective_mutation_rate
             )
             ln_prior_absent[li] = prior.prob_absent()
-            if ln_prior_joint is not None:
-                ln_prior_joint[li] = self._full_prior_table(
-                    contig, it.variant, prior, value_lists
-                )
+            if prior_rows is not None:
+                prior_rows[li] = self._joint_prior_row(engine, it.variant, prior)
+        ln_prior_joint = (
+            None if prior_rows is None else self._joint_prior_tables(engine)
+        )
 
         # pad the locus axis to the fixed batch size, so that every batch
         # gives the engine (and K1) the same shapes (padded loci carry empty
@@ -398,8 +414,8 @@ class GenericCaller:
             n_artifact_active = np.concatenate(
                 [n_artifact_active, np.ones(Lp - L, dtype=np.float32)]
             )
-            if ln_prior_joint is not None:
-                ln_prior_joint = _pad(ln_prior_joint)
+            if prior_rows is not None:
+                prior_rows = _pad(prior_rows)
 
         if self.mesh is not None and ln_prior_joint is None:
             from ..parallel.sharding import run_sharded
@@ -421,6 +437,7 @@ class GenericCaller:
                 ln_prior_absent,
                 ln_prior_joint=ln_prior_joint,
                 n_artifact_active=n_artifact_active,
+                ln_prior_idx=prior_rows,
             )
         if L < Lp:
             out = {

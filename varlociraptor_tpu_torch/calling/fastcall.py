@@ -138,7 +138,7 @@ class PendingWindow:
 # (the wire's section names); a padding locus also gets its first combo slot
 # active
 _LOCUS_FILL = {"sm": 0, "sa": False, "bg": True, "pa": 0.0, "fr": 0.5,
-               "hal": False, "n_art": 1.0, "pj": 0.0}
+               "hal": False, "n_art": 1.0, "pj": 0}
 
 
 def _pad_rows(a, n, fill=0):
@@ -201,14 +201,12 @@ class ColumnarCaller(GenericCaller):
                 gate_cache[ck] = g
             branch_gates[li] = g
 
-        # priors via unique (vartype, overrides) keys; --full-prior adds the
-        # joint prior on the engine's per-sample active subgrids
+        # priors via unique (vartype, overrides) keys; --full-prior adds each
+        # locus's row of the joint prior tables on the engine's per-sample
+        # active subgrids, which go to the device once per key
         ln_prior_absent = np.zeros(L, dtype=np.float32)
-        ln_prior_joint = None
-        if self.options.full_prior:
-            value_lists = [engine.values_s[si] for si in range(S)]
-            shape = (L,) + tuple(len(v) for v in value_lists)
-            ln_prior_joint = np.zeros(shape, dtype=np.float32)
+        full_prior = self.options.full_prior
+        prior_rows = np.zeros(L, dtype=np.int32) if full_prior else None
         pa_cache = {}
         for li, v in enumerate(cb.variants):
             pkey = (v.kind, v.heterozygosity, v.somatic_effective_mutation_rate)
@@ -218,24 +216,21 @@ class ColumnarCaller(GenericCaller):
                 prior.variant_heterozygosity = v.heterozygosity
                 prior.variant_somatic_rate = v.somatic_effective_mutation_rate
                 pa = prior.prob_absent()
-                pj = (
-                    self._full_prior_table(contig, v, prior, value_lists)
-                    if ln_prior_joint is not None
-                    else None
-                )
-                hit = pa_cache[pkey] = (pa, pj)
+                row = self._joint_prior_row(engine, v, prior) if full_prior else None
+                hit = pa_cache[pkey] = (pa, row)
             ln_prior_absent[li] = hit[0]
-            if ln_prior_joint is not None:
-                ln_prior_joint[li] = hit[1]
+            if full_prior:
+                prior_rows[li] = hit[1]
+        tables = self._joint_prior_tables(engine) if full_prior else None
 
         loci = {"sm": slot_map, "sa": slot_active, "bg": branch_gates,
                 "pa": ln_prior_absent, "fr": fwd_rate, "hal": has_alt_loci,
-                "n_art": n_artifact_active, "pj": ln_prior_joint}
+                "n_art": n_artifact_active, "pj": prior_rows}
         d_l = cb.counts.max(axis=1) if cb.counts.size else np.ones(L, int)
         d_l = np.maximum(d_l, 1)
         counts_full = np.zeros((L, S), dtype=np.int64)
         dispatch = self._dispatch_wire if self.mesh is None else self._dispatch_panels
-        groups = dispatch(engine, cb, d_l, loci, counts_full)
+        groups = dispatch(engine, cb, d_l, loci, counts_full, tables)
         meta = {
             "slot_map": slot_map,
             "counts": counts_full,
@@ -263,11 +258,12 @@ class ColumnarCaller(GenericCaller):
             self._seen_full_window = True
         return Lp
 
-    def _dispatch_wire(self, engine, cb, d_l, loci, counts_full):
+    def _dispatch_wire(self, engine, cb, d_l, loci, counts_full, tables):
         """No mesh: each depth bucket ships as ONE uint8 buffer (flat
         observation rows + per-locus metadata, ``engine.pack_wire``) and the
-        device rebuilds its panels by gather (``engine.run_wire``).  Returns
-        the buckets' (locus indices, locus count, pending handle)."""
+        device rebuilds its panels by gather (``engine.run_wire``); the
+        --full-prior ``tables`` are already on the device.  Returns the
+        buckets' (locus indices, locus count, pending handle)."""
         # STATIC two-bucket depth routing: one "bulk" bucket at D=64 (covers
         # WGS-typical pileups) and one rare "deep" bucket at the pow2 of the
         # window's deepest pileup (>= 128).  Few distinct shapes keep the
@@ -293,20 +289,19 @@ class ColumnarCaller(GenericCaller):
             arrays["hilf"] = _pad_rows(hilf, Np)
             arrays["counts"] = _pad_rows(counts.astype(np.int32), Lp)
             Bc = arrays["sm"].shape[1]
-            pj_shape = tuple(arrays["pj"].shape[1:]) if "pj" in arrays else None
-            buf = engine.pack_wire(arrays, Np, Lp, depth, Bc, pj_shape)
-            pending = engine.run_wire(buf, Np, Lp, depth, Bc, pj_shape=pj_shape,
+            buf = engine.pack_wire(arrays, Np, Lp, depth, Bc, tables is not None)
+            pending = engine.run_wire(buf, Np, Lp, depth, Bc, prior_tables=tables,
                                       fetch=False)
             groups.append((idx, Lb, pending))
         return groups
 
-    def _dispatch_panels(self, engine, cb, d_l, loci, counts_full):
+    def _dispatch_panels(self, engine, cb, d_l, loci, counts_full, tables):
         """Over a mesh: each depth bucket ships as dense padded panels,
         sharded over the mesh (``parallel.sharding.run_sharded_compact``);
-        a ``--full-prior`` window, which carries the joint prior, runs
-        ``engine.run_compact`` on the caller's device, as in JAX.  Returns
-        the buckets' (locus indices, locus count, pending handle or host
-        dict)."""
+        a ``--full-prior`` window, which carries the joint prior ``tables``,
+        runs ``engine.run_compact`` on the caller's device, as in JAX.
+        Returns the buckets' (locus indices, locus count, pending handle or
+        host dict)."""
         from ..parallel.sharding import run_sharded_compact
 
         # pow2 depth buckets (>= 16); sparsely populated ones merge upward,
@@ -334,8 +329,9 @@ class ColumnarCaller(GenericCaller):
             panels = (_pad_rows(obs_f16, Lp), _pad_rows(obs_u8, Lp),
                       _pad_rows(hil, Lp, HOMOPOLYMER_NONE), _pad_rows(mask, Lp),
                       a["sm"], a["sa"], a["bg"], a["pa"], a["fr"], a["hal"])
-            if "pj" in a:
-                pending = engine.run_compact(*panels, ln_prior_joint=a["pj"],
+            if tables is not None:
+                pending = engine.run_compact(*panels, ln_prior_joint=tables,
+                                             ln_prior_idx=a["pj"],
                                              n_artifact_active=a["n_art"], fetch=False)
             else:
                 pending = run_sharded_compact(engine, self.mesh, *panels,

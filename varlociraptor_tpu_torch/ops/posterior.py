@@ -63,6 +63,10 @@ LN_32 = math.log(3.2)  # Kass-Raftery "positive" threshold
 AFD_TOP_K = 16
 AFD_BACKBONE_K = 16
 
+# the largest [Lc,B,NB,G1,G2] float32 slab of the --full-prior trio loop: the
+# locus axis is cut into chunks that keep each within it (two live at once)
+_FULL_PRIOR_SLAB_BYTES = 1 << 31
+
 _TORCH_DTYPES = {
     np.dtype(np.float16): torch.float16,
     np.dtype(np.float32): torch.float32,
@@ -222,13 +226,15 @@ class _Pending:
     non-blocking copies, and the CUDA event recorded after those copies on
     the dispatching stream (None on the CPU).  Any thread may finish it."""
 
-    def __init__(self, host, event, L, marks):
+    def __init__(self, host, event, L, marks, counts=()):
         self.host = host
         self.event = event
         self.L = L
-        # traced: (counter, start, end) stream marks of the run's l2fc and
-        # assemble passes
+        # traced: (counter, start, end) stream marks of the run's l2fc,
+        # full-prior and assemble passes, and (counter, host tensor) counts
+        # computed on the device
         self.marks = marks
+        self.counts = counts
 
 
 class PosteriorEngine:
@@ -566,6 +572,9 @@ class PosteriorEngine:
         # to a pending fetch
         self._lfc_work = [0, 0]
         self._stream_marks = []
+        # traced: (counter, device tensor) counts that the pending fetch
+        # copies to the host with the run's outputs
+        self._device_counts = []
 
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
@@ -1126,17 +1135,57 @@ class PosteriorEngine:
         z00 = fa_z + fb_z + lm[za, zb] + rp_zero
         return total, z00
 
-    def _full_prior_T(self, P, loglik, pair_logliks, w_list, B):
-        """[L,B,NB] branch values under the joint prior ``P`` ([L] + the
-        per-sample active subgrid sizes; --full-prior), with the l2fc masks
-        folded in (prior.rs:298-438 with is_absent_only = false)."""
+    def _full_prior_terms(self, P, idx, loglik, pair_logliks, w_list, branch_gates,
+                          combo_active):
+        """:meth:`_full_prior_T` in the span ``engine.full_prior``.  Traced,
+        it counts ``engine.full_prior_steps`` (the grid-axis loops' steps),
+        ``engine.full_prior_cells`` (for every locus, active combination and
+        open branch, the product over samples of the branch's grid points
+        with a finite weight: the joint cells any exact method must touch),
+        ``engine.full_prior_bytes`` (the float32 likelihoods and weights
+        read once, the table once, the per-locus index, the [L,B,NB] output
+        written once), and marks the stream at its start and end, as
+        :meth:`_lfc_terms` does (``engine.full_prior_stream_ns``)."""
+        with tracing.span("engine.full_prior"):
+            traced = tracing.enabled()
+            if traced:
+                dev = P.device
+                start, steps0 = _stream_mark(dev), self.loop_steps
+            B = combo_active.shape[1]
+            T = self._full_prior_T(P, idx, loglik, pair_logliks, w_list, B)
+            if traced:
+                self._stream_marks.append(
+                    ("engine.full_prior_stream_ns", start, _stream_mark(dev))
+                )
+                tracing.count("engine.full_prior_steps", self.loop_steps - steps0)
+                per_branch = None
+                for w in w_list:  # [L,NB,Gs]
+                    n = torch.isfinite(w).sum(dim=-1)
+                    per_branch = n if per_branch is None else per_branch * n
+                per_branch = per_branch * branch_gates
+                cells = (per_branch.sum(dim=1) * combo_active.sum(dim=1)).sum()
+                self._device_counts.append(("engine.full_prior_cells", cells))
+                L, NB = T.shape[0], T.shape[2]
+                read = sum(w.numel() for w in w_list)
+                read += sum(v.numel() for v in loglik.values())
+                read += sum(v.numel() for v in pair_logliks.values())
+                tracing.count("engine.full_prior_bytes",
+                              4 * (read + P.numel() + L + L * B * NB))
+        return T
+
+    def _full_prior_T(self, P, idx, loglik, pair_logliks, w_list, B):
+        """[L,B,NB] branch values under the joint prior table ``P`` ([K] +
+        the per-sample active subgrid sizes; --full-prior) at each locus's
+        row ``idx`` [L], with the l2fc masks folded in (prior.rs:298-438
+        with is_absent_only = false)."""
         import itertools
 
         S = self.n_samples
         lfc_by_pair = self._lfc_by_pair_t
+
         if S == 1:
             d0 = loglik[0][:, :, None, :] + w_list[0][:, None]  # [L,B,NB,G0]
-            return _lse(d0 + P[:, None, None, :], dim=-1)
+            return _lse(d0 + P[idx][:, None, None, :], dim=-1)
         if S == 2 and self.pairs:
             si, by, _ = self.pairs[0]
             pl = pair_logliks[si]  # [L,B,Gc,Gp]
@@ -1149,7 +1198,8 @@ class PosteriorEngine:
                 joint = pl[:, :, None] + wp + wc
             else:
                 joint = pl[:, :, None] + wp + wc + loglik[by][:, :, None, None, :]
-            Po = P if si < by else torch.swapaxes(P, -1, -2)
+            Pl = P[idx]
+            Po = Pl if si < by else torch.swapaxes(Pl, -1, -2)
             joint = joint + Po[:, None, None]
             # joint axes are (si, by); masks are stored as (0, 1)
             for (a, b), M in lfc_by_pair.items():
@@ -1159,37 +1209,24 @@ class PosteriorEngine:
         if S == 2:
             d0 = loglik[0][:, :, None, :] + w_list[0][:, None]
             d1 = loglik[1][:, :, None, :] + w_list[1][:, None]
-            joint = d0[..., :, None] + d1[..., None, :] + P[:, None, None]
+            joint = d0[..., :, None] + d1[..., None, :] + P[idx][:, None, None]
             for M in lfc_by_pair.values():  # canonical (0, 1)
                 joint = joint + M[None, None]
             return _lse(joint, dim=(-2, -1))
-        L = P.shape[0]
+        L = w_list[0].shape[0]
         NB = self.n_branches
         if S == 3 and not self.pairs:
+            d = [loglik[s][:, :, None, :] + w_list[s][:, None] for s in range(3)]
             # trio (mendelian): a loop over the first sample's grid axis,
-            # one [L,B,NB,G1,G2] slab per step
-            d0 = loglik[0][:, :, None, :] + w_list[0][:, None]
-            d1 = loglik[1][:, :, None, :] + w_list[1][:, None]
-            d2 = loglik[2][:, :, None, :] + w_list[2][:, None]
-            base = d1[..., :, None] + d2[..., None, :]
-            M12 = lfc_by_pair.get((1, 2))
-            if M12 is not None:
-                base = base + M12[None, None]
-            T = torch.full((L, B, NB), NEG_INF, device=P.device)
-            for g0 in range(d0.shape[-1]):
-                self.loop_steps += 1
-                slab = base + P[:, g0][:, None, None]
-                for (a, b), M in lfc_by_pair.items():
-                    if a != 0:
-                        continue
-                    row = M[:, g0]  # [NB, G_b]
-                    slab = slab + (
-                        row[None, None, :, :, None]
-                        if b == 1
-                        else row[None, None, :, None, :]
-                    )
-                T = torch.logaddexp(T, _lse(slab, dim=(-2, -1)) + d0[..., g0])
-            return T
+            # one [Lc,B,NB,G1,G2] slab per step, over chunks of Lc loci
+            # that keep a slab within _FULL_PRIOR_SLAB_BYTES
+            G1, G2 = d[1].shape[-1], d[2].shape[-1]
+            Lc = max(1, _FULL_PRIOR_SLAB_BYTES // (4 * B * NB * G1 * G2))
+            parts = []
+            for l0 in range(0, L, Lc):
+                sl = slice(l0, min(L, l0 + Lc))
+                parts.append(self._trio_chunk(P, idx[sl], [x[sl] for x in d]))
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
         # any S and any contamination digraph (cycles included): enumerate
         # the joint subgrid product with a loop over the flattened leading
         # S-2 axes, one [L,B,NB,G_{S-2},G_{S-1}] slab per step
@@ -1213,7 +1250,7 @@ class PosteriorEngine:
         lead_sizes = [len(self.values_s[s]) for s in range(S - 2)]
         for c in itertools.product(*(range(n) for n in lead_sizes)):
             self.loop_steps += 1
-            slab = P[(slice(None),) + c][:, None, None]  # [L,1,1,Gx,Gy]
+            slab = P[(slice(None),) + c][idx][:, None, None]  # [L,1,1,Gx,Gy]
             for s, arr in singles:
                 if s < x_s:
                     slab = slab + arr[..., c[s]][..., None, None]
@@ -1251,6 +1288,40 @@ class PosteriorEngine:
                         else row[None, None, :, None, :]
                     )
             T = torch.logaddexp(T, _lse(slab, dim=(-2, -1)))
+        return T
+
+    def _trio_chunk(self, P, idx, d):
+        """The trio loop of :meth:`_full_prior_T` on one chunk of loci:
+        ``d`` the three samples' [Lc,B,NB,Gs] terms, ``idx`` the chunk's
+        table rows.  Each step adds the prior's [Lc,G1,G2] plane at one point
+        of the first sample's grid to the [Lc,B,NB,G1,G2] slab of the other
+        two and reduces it in place (the steps of ``_lse``)."""
+        lfc_by_pair = self._lfc_by_pair_t
+        d0, d1, d2 = d
+        base = d1[..., :, None] + d2[..., None, :]
+        M12 = lfc_by_pair.get((1, 2))
+        if M12 is not None:
+            base = base + M12[None, None]
+        T = torch.full(base.shape[:3], NEG_INF, device=base.device)
+        for g0 in range(d0.shape[-1]):
+            self.loop_steps += 1
+            plane = P[:, g0][idx]  # [Lc,G1,G2]
+            slab = base + plane[:, None, None]
+            for (a, b), M in lfc_by_pair.items():
+                if a != 0:
+                    continue
+                row = M[:, g0]  # [NB, G_b]
+                slab.add_(
+                    row[None, None, :, :, None]
+                    if b == 1
+                    else row[None, None, :, None, :]
+                )
+            m = torch.amax(slab, dim=(-2, -1), keepdim=True)
+            fin = torch.isfinite(m)
+            m_safe = torch.where(fin, m, 0.0)
+            ssum = slab.sub_(m_safe).exp_().sum(dim=(-2, -1), keepdim=True)
+            step = torch.where(fin, torch.log(ssum) + m_safe, m).squeeze(-1).squeeze(-1)
+            T = torch.logaddexp(T, step + d0[..., g0])
         return T
 
     def _unit_terms(self, loglik, pair_logliks, w_list, B):
@@ -1305,6 +1376,7 @@ class PosteriorEngine:
         ln_prior_absent,
         ln_prior_joint=None,
         n_artifact_active=None,
+        ln_prior_idx=None,
     ):
         L, S, D, _ = feats.shape
         B = bias_alt.shape[2]
@@ -1348,8 +1420,11 @@ class PosteriorEngine:
         if ln_prior_joint is not None:
             # --full-prior: the prior is evaluated pointwise on the joint
             # grid instead of the absent-only split
-            T = self._full_prior_T(
-                ln_prior_joint, loglik, pair_logliks, w_list, B
+            if ln_prior_idx is None:
+                raise ValueError("ln_prior_joint needs ln_prior_idx, each locus's table")
+            T = self._full_prior_terms(
+                ln_prior_joint, ln_prior_idx, loglik, pair_logliks, w_list,
+                branch_gates, combo_active,
             )
             T = torch.where(branch_gates[:, None, :], T, NEG_INF)
             branch_val = torch.where(combo_active[:, :, None], T, NEG_INF)
@@ -1513,17 +1588,21 @@ class PosteriorEngine:
             "n_obs": torch.clamp(mask.sum(dim=-1), max=32767).to(torch.int64),
         }
         marks, self._stream_marks = self._stream_marks, []
+        counts, self._device_counts = self._device_counts, []
         if self.device.type != "cuda":
-            return _Pending(dev_out, None, L, marks)
+            return _Pending(dev_out, None, L, marks, counts)
         stream = torch.cuda.current_stream(self.device)
-        host = {}
-        for k, v in dev_out.items():
+
+        def to_host(v):
             h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
             h.copy_(v, non_blocking=True)
-            host[k] = h
+            return h
+
+        host = {k: to_host(v) for k, v in dev_out.items()}
+        counts = [(name, to_host(v)) for name, v in counts]
         event = torch.cuda.Event()
         event.record(stream)
-        return _Pending(host, event, L, marks)
+        return _Pending(host, event, L, marks, counts)
 
     def fetch_run(self, pending):
         """Wait for a pending result and unpack it into the host dict."""
@@ -1531,6 +1610,8 @@ class PosteriorEngine:
             pending.event.synchronize()
         for name, start, end in pending.marks:
             tracing.count(name, _stream_ns(start, end))
+        for name, v in pending.counts:
+            tracing.count(name, int(v))
         h = {k: v.numpy() for k, v in pending.host.items()}
         host = {
             "posteriors": h["posteriors"],
@@ -1557,7 +1638,8 @@ class PosteriorEngine:
         """The per-locus metadata of the dense entries on the device, in
         :meth:`_run_impl`'s order: (combo_active, branch_gates,
         ln_prior_absent, ln_prior_joint or None, n_artifact_active, by
-        default the engine's artifact combo count)."""
+        default the engine's artifact combo count).  ``ln_prior_joint``
+        goes as it comes: a tensor already on the device is not copied."""
         f32 = torch.float32
         pa = self._as_tensor(ln_prior_absent, f32)
         if n_artifact_active is None:
@@ -1570,9 +1652,19 @@ class PosteriorEngine:
             self._as_tensor(combo_active, torch.bool),
             self._as_tensor(branch_gates, torch.bool),
             pa,
-            None if ln_prior_joint is None else self._as_tensor(ln_prior_joint, f32),
+            None if ln_prior_joint is None else self.upload_prior_tables(ln_prior_joint),
             n_art,
         )
+
+    def upload_prior_tables(self, tables):
+        """The --full-prior tables [K, G_0, ..., G_{S-1}] as float32 on the
+        engine's device, for :meth:`run`, :meth:`run_compact` and
+        :meth:`run_wire` to index by locus: a caller uploads them once and
+        passes them with every window (tables already there are taken as
+        they are)."""
+        if isinstance(tables, torch.Tensor) and tables.device == self.device:
+            return tables.to(torch.float32)
+        return self._as_tensor(tables, torch.float32)
 
     def run(
         self,
@@ -1587,13 +1679,16 @@ class PosteriorEngine:
         ln_prior_joint=None,
         n_artifact_active=None,
         fetch=True,
+        ln_prior_idx=None,
     ):
         """Evaluate posteriors for a locus batch.
 
         feats [L,S,D,Fe] f32; mask [L,S,D] bool; bias_* [L,S,B,D] f32;
         combo_active [L,B] bool; branch_gates [L,NB] bool; ln_prior_absent
-        [L] f32; ln_prior_joint [L, G_0, ..., G_{S-1}] f32 optional, the
-        --full-prior joint prior on the per-sample active subgrids.  Returns
+        [L] f32; ln_prior_joint optional, the --full-prior joint prior on
+        the per-sample active subgrids: tables [K, G_0, ..., G_{S-1}] f32
+        (host, or from :meth:`upload_prior_tables`), given with
+        ``ln_prior_idx`` [L] int, each locus's table.  Returns
         the host dict: joint [L,E], posteriors [L,E],
         marginal [L], densities_dphred [L,S,G] int16 (32767 sentinel), af
         [L,S], best_nonartifact [L], map_slot [L], n_obs [L,S].
@@ -1612,14 +1707,19 @@ class PosteriorEngine:
                     combo_active, branch_gates, ln_prior_absent, ln_prior_joint,
                     n_artifact_active,
                 ),
+                ln_prior_idx=self._prior_idx(ln_prior_idx),
             )
             pending = self._start_fetch(out, m, feats.shape[0])
         return self.fetch_run(pending) if fetch else pending
 
     # ------------------------------------------------------------------
+    def _prior_idx(self, idx):
+        """The per-locus table rows on the device (int64), or None."""
+        return None if idx is None else self._as_tensor(idx, torch.int64)
+
     def _compact_core(self, obs_f16, obs_u8, hil, mask, slot_map, fwd_rate,
                       has_alt, combo_active, branch_gates, ln_prior_absent,
-                      ln_prior_joint, n_art):
+                      ln_prior_joint, n_art, ln_prior_idx=None):
         """Feature expansion + device bias factors + posterior
         (ops.compact_obs wire encoding)."""
         from .compact_obs import bias_factors, expand_features
@@ -1629,7 +1729,7 @@ class PosteriorEngine:
         return self._run_impl(
             feats, mask, ba, br_, bn, combo_active, branch_gates,
             ln_prior_absent, ln_prior_joint=ln_prior_joint,
-            n_artifact_active=n_art,
+            n_artifact_active=n_art, ln_prior_idx=ln_prior_idx,
         )
 
     def run_compact(
@@ -1647,6 +1747,7 @@ class PosteriorEngine:
         ln_prior_joint=None,
         n_artifact_active=None,
         fetch=True,
+        ln_prior_idx=None,
     ):
         """:meth:`run` from the dense compact encoding (ops.compact_obs):
         obs_f16 [L,S,D,N_CF] f16; obs_u8 [L,S,D,N_CU] u8; hil [L,S,D] i8;
@@ -1673,14 +1774,16 @@ class PosteriorEngine:
                 self._as_tensor(fwd_rate, torch.float32),
                 self._as_tensor(has_alt_loci, torch.bool),
                 *loci,
+                ln_prior_idx=self._prior_idx(ln_prior_idx),
             )
             pending = self._start_fetch(out, m, L)
         return self.fetch_run(pending) if fetch else pending
 
     # ------------------------------------------------------------------
-    def _in_wire_spec(self, Np, L, D, Bc, pj_shape):
+    def _in_wire_spec(self, Np, L, D, Bc, joint_prior=False):
         """Section layout of the single uint8 input buffer (4-byte aligned
-        sections)."""
+        sections); with ``joint_prior``, ``pj``: each locus's row of the
+        --full-prior tables."""
         from .compact_obs import N_CF, N_CU
 
         S = self.n_samples
@@ -1697,19 +1800,20 @@ class PosteriorEngine:
             ("hal", np.uint8, (L,)),
             ("n_art", np.float32, (L,)),
         ]
-        if pj_shape is not None:
-            spec.append(("pj", np.float32, (L,) + tuple(pj_shape)))
+        if joint_prior:
+            spec.append(("pj", np.int32, (L,)))
         return spec
 
-    def pack_wire(self, arrays, Np, L, D, Bc, pj_shape=None):
+    def pack_wire(self, arrays, Np, L, D, Bc, joint_prior=False):
         """Host side: the uint8 input buffer of :meth:`run_wire` (same
         dimensions) from its named sections: the flat observation rows
         ``f16f`` [Np,N_CF], ``u8f`` [Np,N_CU], ``hilf`` [Np], the per-sample
         ``counts`` [L,S], and the per-locus ``sm``, ``sa`` [L,Bc], ``bg``
         [L,NB], ``pa``, ``fr``, ``hal``, ``n_art`` [L] and, with
-        ``pj_shape``, ``pj`` [L, *pj_shape]."""
+        ``joint_prior``, ``pj`` [L] (each locus's row of the --full-prior
+        tables)."""
         parts = []
-        for name, dtype, shape in self._in_wire_spec(Np, L, D, Bc, pj_shape):
+        for name, dtype, shape in self._in_wire_spec(Np, L, D, Bc, joint_prior):
             a = np.ascontiguousarray(
                 np.asarray(arrays[name]).astype(dtype, copy=False)
             ).reshape(-1)
@@ -1727,20 +1831,24 @@ class PosteriorEngine:
         L,
         D,
         Bc,
-        pj_shape=None,
+        prior_tables=None,
         fetch=True,
     ):
         """Engine dispatch from ONE uint8 input buffer carrying the flat
         observation rows + all per-locus metadata.  The buffer is copied to
         the device once and the [L,S,D] panels are rebuilt there by gather
         (segment offsets from the shipped counts; rows past a segment read
-        an appended fill row).  fetch=False returns a pending handle."""
+        an appended fill row).  With ``prior_tables`` (--full-prior: the
+        [K, G_0, ..., G_{S-1}] tables, from :meth:`upload_prior_tables`), the
+        buffer's ``pj`` section holds each locus's row of them.
+        fetch=False returns a pending handle."""
         from ..evidence.observation import HOMOPOLYMER_NONE as _HN
         from .compact_obs import N_CF, N_CU
 
         S = self.n_samples
         Ls, Ds = int(L), int(D)
-        spec = self._in_wire_spec(int(Np), Ls, Ds, int(Bc), pj_shape)
+        joint = prior_tables is not None
+        spec = self._in_wire_spec(int(Np), Ls, Ds, int(Bc), joint)
         dev = self.device
         with tracing.span("engine.dispatch"), torch.no_grad():
             tracing.count("engine.dispatches", 1)
@@ -1784,8 +1892,9 @@ class PosteriorEngine:
                 sec["sa"] != 0,
                 sec["bg"] != 0,
                 sec["pa"],
-                sec.get("pj"),
+                self.upload_prior_tables(prior_tables) if joint else None,
                 sec["n_art"],
+                ln_prior_idx=sec["pj"].to(torch.int64) if joint else None,
             )
             pending = self._start_fetch(out, mask, Ls)
         return self.fetch_run(pending) if fetch else pending

@@ -163,8 +163,7 @@ def run_sharded(engine, mesh, feats, mask, bias_alt, bias_ref, bias_any,
 
 def run_sharded_compact(engine, mesh, obs_f16, obs_u8, hil, mask, slot_map,
                         combo_active, branch_gates, ln_prior_absent,
-                        fwd_rate, has_alt_loci, ln_prior_joint=None,
-                        n_artifact_active=None):
+                        fwd_rate, has_alt_loci, n_artifact_active=None):
     """Dense-compact twin of :func:`run_sharded`: the f16 / u8 / hil panels
     (ops.compact_obs) are split along the locus axis, and each shard runs
     ``engine.run_compact`` (feature expansion, bias factors and the
@@ -173,10 +172,10 @@ def run_sharded_compact(engine, mesh, obs_f16, obs_u8, hil, mask, slot_map,
     L = np.asarray(obs_f16).shape[0]
     shards = _split(mesh, [obs_f16, obs_u8, hil, mask, slot_map, combo_active,
                            branch_gates, ln_prior_absent, fwd_rate,
-                           has_alt_loci, ln_prior_joint, n_artifact_active])
+                           has_alt_loci, n_artifact_active])
     pending = [
         mesh.engine_on(engine, dev).run_compact(
-            *a[:10], ln_prior_joint=a[10], n_artifact_active=a[11], fetch=False
+            *a[:10], n_artifact_active=a[10], fetch=False
         )
         for dev, a in zip(mesh.devices, shards)
     ]
